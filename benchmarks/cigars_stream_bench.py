@@ -1,12 +1,13 @@
 """Steady-state full-alignment streaming: fill + device walk + decode.
 
-VERDICT r3 item 5: the device walk was ~40% of e2e alignment time when
-measured as a serial fill -> walk -> decode chain (benchmarks/walk_bench).
-The production path is the streaming pipeline, where the walk of batch k
+Measured as a serial fill -> walk -> decode chain
+(benchmarks/walk_bench) the device walk is a large share of e2e alignment
+time.  The production path is the streaming pipeline, where the walk of batch k
 overlaps the host prep/H2D of batch k+1 and the packed-op fetch + C
 decode overlap the next fill.  This bench measures that: N pairs of
 length L streamed through stream_align(cigars=True) in sub-batches sized
-so two dirs tensors fit HBM, reporting sustained alignments/s.
+so two dirs tensors fit device memory, reporting sustained alignments/s.
+Needs a GPU; exits non-zero without one.
 
 Usage: python benchmarks/cigars_stream_bench.py [--pairs 4096]
        [--length 2046] [--batch 2048] [--out ""]
@@ -22,11 +23,7 @@ import time
 
 import numpy as np
 
-_sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
-
-from sequencealigning_tpu.utils.compilecache import enable as _enable
-
-_enable()
+from _gpu import require_gpu
 
 
 def _mk_pairs(n_pairs, length, seed=7):
@@ -56,17 +53,12 @@ def main() -> int:
     ap.add_argument("--out", default="")
     args = ap.parse_args()
 
+    card = require_gpu("cigars_stream_bench")
     import jax
 
     from sequencealigning_tpu.parallel.runner import DataParallelRunner
     from sequencealigning_tpu.parallel.streaming import stream_align
-
-    from configs_bench import _link_probe
-
-    on_tpu = jax.default_backend() == "tpu"
-    N, L, B = (
-        (args.pairs, args.length, args.batch) if on_tpu else (64, 126, 32)
-    )
+    N, L, B = args.pairs, args.length, args.batch
 
     pairs = _mk_pairs(N, L)
 
@@ -76,7 +68,7 @@ def main() -> int:
             _os.environ["SEQALIGN_RLE"] = "1"
         else:
             _os.environ.pop("SEQALIGN_RLE", None)
-        runner = DataParallelRunner(np_slots=128 if on_tpu else 2)
+        runner = DataParallelRunner()
         got = {"alns": 0, "fails": 0, "score_sum": 0, "drain_bytes": 0,
                "drain_path": ""}
 
@@ -122,8 +114,8 @@ def main() -> int:
         "pairs": N,
         "length": L,
         "batch": B,
-        "backend": jax.default_backend(),
-        "link": _link_probe(),
+        "card": card,
+        "device_kind": jax.devices()[0].device_kind,
         "packed": run_one(rle=False),
         "rle": run_one(rle=True),
     }

@@ -1,9 +1,12 @@
-"""Measure the textbook semi-global/local engines on TPU.
+"""Measure the textbook semi-global/local engines on one GPU.
 
 Compares the plain per-pair modes kernel (ops.nw_affine_modes) against
 the streamed-pair modes engine (ops.nw_affine_stream_modes) at a
 config-2-scaled shape.  End-to-end per call (host batch in, device
-argmax buffers out, forced read), GCUPS counts true n1*n2 cells.
+argmax buffers out, forced read), GCUPS counts true n1*n2 cells.  Both
+run their lax.scan fills (no CUDA modes kernel yet); the numbers are the
+bar a modes mode of the CUDA streamed fill has to beat.  Needs a GPU;
+exits non-zero without one.
 
 Usage: python benchmarks/modes_bench.py [--pairs 512] [--length 2046]
 """
@@ -17,12 +20,7 @@ import time
 
 import numpy as np
 
-import os as _os, sys as _sys
-_sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))  # repo root
-
-from sequencealigning_tpu.utils.compilecache import enable as _enable_cache
-
-_enable_cache()
+from _gpu import require_gpu
 
 
 def main() -> int:
@@ -33,26 +31,18 @@ def main() -> int:
     ap.add_argument("--with-dirs", action="store_true", default=True)
     args = ap.parse_args()
 
-    import os
-
-    import jax
-
-    if os.environ.get("JAX_PLATFORMS", "").strip() == "cpu":
-        jax.config.update("jax_platforms", "cpu")
-
-    sys.path.insert(
-        0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    )
-    from bench import _make_pairs
-
+    card = require_gpu("modes_bench")
+    print(card, file=sys.stderr)
     from sequencealigning_tpu.io.encode import pack_batch, trim_for_stream
     from sequencealigning_tpu.ops.nw_affine_modes import nw_affine_modes_batch
     from sequencealigning_tpu.ops.nw_affine_stream_modes import (
         nw_affine_stream_modes_batch,
     )
 
+    from sequencealigning_tpu.utils.synth import mutated_pairs
+
     rng = np.random.default_rng(11)
-    pairs = _make_pairs(rng, args.pairs, args.length)
+    pairs = mutated_pairs(rng, args.pairs, args.length)
     batch = trim_for_stream(pack_batch(pairs, batch_size=args.pairs))
     cells = float(
         (batch.query_len.astype(np.int64) * batch.db_len.astype(np.int64)).sum()
@@ -68,7 +58,7 @@ def main() -> int:
                             batch.query, batch.db,
                             batch.query_len, batch.db_len, mode,
                             with_dirs=args.with_dirs,
-                            np_slots=max(1, min(128, args.pairs // 8)),
+                            np_slots=max(1, min(8, args.pairs // 8)),
                         )
                         return r.best  # already np (reduced on device)
                     r = nw_affine_modes_batch(

@@ -1,4 +1,4 @@
-"""On-device fast4 traceback walk: throughput + cross-check on real TPU.
+"""On-device fast4 traceback walk: throughput + cross-check on one GPU.
 
 Measures the production end-to-end alignment path at the bench headline
 shape: streamed fast4 fill (dirs stay on device) -> batched device walk
@@ -7,6 +7,7 @@ Compares against the legacy path's transfer bill (the full dirs tensor)
 and cross-checks a sample of pairs against the host walker.
 
 Usage: python benchmarks/walk_bench.py [n_pairs] [length] [sample]
+Needs a GPU; exits non-zero without one.
 """
 
 import sys
@@ -14,9 +15,7 @@ import time
 
 import numpy as np
 
-from sequencealigning_tpu.utils.compilecache import enable as _enable
-
-_enable()
+from _gpu import require_gpu
 
 
 def main():
@@ -24,6 +23,7 @@ def main():
     length = int(sys.argv[2]) if len(sys.argv) > 2 else 2046
     sample = int(sys.argv[3]) if len(sys.argv) > 3 else 8
 
+    print(require_gpu("walk_bench"), file=sys.stderr)
     import jax
 
     from sequencealigning_tpu.io.encode import pack_batch, trim_for_stream
@@ -52,7 +52,7 @@ def main():
     def fill():
         return nw_affine_stream_batch(
             batch.query, batch.db, batch.query_len, batch.db_len,
-            with_dirs="fast4", np_slots=128 if n_pairs >= 1024 else None,
+            with_dirs="fast4",
             compat=True,
         )
 
@@ -62,7 +62,7 @@ def main():
     res = fill()  # compile + warm
     _ = np.asarray(res.finals)
     # Warm the walk+decode (compile) on the warm fill, then drop it: at
-    # 4096 pairs the dirs tensor is ~8.6 GB and two live copies exceed HBM.
+    # 4096 pairs the dirs tensor is ~8.6 GB and two live copies crowd the card.
     alns, scores = fast4_stream_align_device(
         res.dirs, res.finals, s1s, s2s, res.plan
     )

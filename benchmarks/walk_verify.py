@@ -1,6 +1,6 @@
 """On-hardware certification of the device traceback walkers.
 
-Runs randomized batches on the real backend and compares EVERY pair's
+Runs randomized batches on a GPU and compares EVERY pair's
 device-walked alignment byte-for-byte against the host walker reading
 the fetched dirs tensor -- across the stream fast4 layout and the
 banded-diag layout, with SNP-only, indel-heavy, and random-pair
@@ -8,7 +8,8 @@ mutation profiles (indels make walks longer than max(n1, n2), crossing
 the early-exit chunk boundaries; random pairs stress gap runs).
 
 Usage: python benchmarks/walk_verify.py [--rounds 3] [--pairs 64]
-Exit 0 = every comparison identical.
+Exit 0 = every comparison identical.  Needs a GPU; exits non-zero without
+one.
 """
 
 from __future__ import annotations
@@ -18,12 +19,7 @@ import sys
 
 import numpy as np
 
-import os as _os, sys as _sys
-_sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))  # repo root
-
-from sequencealigning_tpu.utils.compilecache import enable as _enable
-
-_enable()
+from _gpu import require_gpu
 
 
 def _mutate(rng, ref: bytes, n_sub: int, n_indel: int) -> bytes:
@@ -65,6 +61,7 @@ def main() -> int:
     ap.add_argument("--length", type=int, default=1022)
     args = ap.parse_args()
 
+    print(require_gpu("walk_verify"), file=sys.stderr)
     import jax
 
     from sequencealigning_tpu.io.encode import pack_batch, trim_for_stream

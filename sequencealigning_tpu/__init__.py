@@ -1,11 +1,12 @@
-"""sequencealigning_tpu: a TPU-native pairwise sequence-alignment framework.
+"""sequencealigning_tpu: a batched pairwise sequence-alignment framework.
 
-A ground-up JAX/Pallas re-design of the capabilities of the reference Rust
-CLI (Qw11111111111/SequenceAligning): weighted-A* search, affine-gap
+A ground-up JAX re-design of the capabilities of the reference Rust CLI
+(Qw11111111111/SequenceAligning): weighted-A* search, affine-gap
 Needleman-Wunsch (Gotoh), linear-gap NW, and wavefront alignment (WFA) with
-adaptive pruning -- plus what the reference lacks: batched fills as Pallas
-anti-diagonal kernels on the 8x128 VPU, data-parallel scaling over device
-meshes via jax.sharding/shard_map, structured results, and benchmarks.
+adaptive pruning -- plus what the reference lacks: batched anti-diagonal
+fills (CUDA kernels on an NVIDIA GPU, lax.scan on the CPU), data-parallel
+scaling over device meshes via jax.sharding/shard_map, structured results,
+and benchmarks.
 """
 
 from sequencealigning_tpu.config import (

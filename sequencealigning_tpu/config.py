@@ -27,7 +27,7 @@ class Algo(enum.Enum):
     framework's additions: the linear-gap NW recurrence that exists in the
     reference only as dead code (src/needleman_wunsch.rs, commented out of
     src/main.rs:4), and a banded affine variant (fixed-shape masked band, the
-    TPU-native analog of A*'s pruning)."""
+    batched analog of A*'s pruning)."""
 
     A_STAR = "a-star"
     NEEDLEMAN_WUNSCH = "needleman-wunsch"
@@ -108,12 +108,11 @@ class AlignConfig:
     wfa_max_steps: int = 20_000
     # Textbook-WFA engine choice.  "auto" routes low-divergence pairs to
     # the exact threaded native host engine (penalty-capped) and the rest
-    # to the banded Gotoh Pallas kernel under the penalty-converted
-    # scheme -- in its reference model inside the coincidence regime
-    # (mismatch <= 2*gap_extend, PARITY.md; measured ~7x the wavefront
-    # engine at 128 x 10 kb), or the any-state-open "std" variant
+    # to the banded Gotoh fill under the penalty-converted scheme -- in
+    # its reference model inside the coincidence regime (mismatch <=
+    # 2*gap_extend, PARITY.md), or the any-state-open "std" variant
     # (ops.nw_banded_diag model="std") outside it, so EVERY penalty
-    # scheme gets the TPU banded path.  "banded" / "native" /
+    # scheme gets the device banded path.  "banded" / "native" /
     # "wavefront" force a specific engine.
     wfa_engine: str = "auto"
     # Bounded ends-free WFA spans (lead1, lead2, trail1, trail2): with
@@ -133,18 +132,19 @@ class AlignConfig:
     # instead of the reference's full co-optimal enumeration.
     first_only: bool = False
     # fast4 traceback walker: "auto" walks on device when the dirs tensor
-    # lives on a TPU (one gathered word per pair per step; fetches 2 bits
+    # lives on a GPU (one gathered word per pair per step; fetches 2 bits
     # per walk step instead of the 0.5 byte/cell dirs tensor -- ~4000x
     # less device->host transfer at 2 kb pairs), "host" always fetches
     # dirs and walks on the host (native C walker), "device" forces the
     # device walk on any backend (tests).  Alignments are bit-identical
     # (tests/test_traceback_device.py).
     traceback: str = "auto"
-    # Streamed-kernel score-state dtype: "i32", "i16" (2x VPU lane density;
+    # Streamed-fill score-state dtype: "i32", "i16" (half the state bytes;
+    # the CPU's lax engine only -- the CUDA fill is int32 and raises;
     # requires the closed-form range certification to pass, see
     # ops.nw_affine_stream.stream_i16_neg), or "auto" (i16 iff certified
-    # AND the backend's Mosaic compiles i16 vector ops -- probed once per
-    # process).  Results are bit-identical either way (tests pin it).
+    # on the CPU, i32 on a GPU).  Results are bit-identical either way
+    # (tests pin it).
     stream_state: str = "i32"
     # Device mesh: (data,) axis sizes; None = all local devices on one axis.
     mesh_shape: tuple = ()

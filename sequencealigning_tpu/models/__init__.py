@@ -2,7 +2,7 @@
 
 The reference exposes three algorithms behind free functions dispatched in
 main (src/main.rs:63-66); here each is a class with a single-pair API, a
-batched TPU API, and the reference's all-pairs driver semantics
+batched device API, and the reference's all-pairs driver semantics
 (db x query, per-pair failure isolation)."""
 
 from sequencealigning_tpu.models.base import Aligner, PairResult, get_aligner

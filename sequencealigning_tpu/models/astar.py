@@ -2,7 +2,7 @@
 
 Reference: align (src/align.rs:19-57).  The search itself is inherently
 sequential heap-driven host work (kept bit-exact in ops.oracle_astar,
-including Rust BinaryHeap pop order); the TPU-scale equivalent is
+including Rust BinaryHeap pop order); the batched device equivalent is
 models.banded.BandedAligner (fixed corridor instead of a heap frontier).
 
 The reference's main always calls align() with local=false regardless of

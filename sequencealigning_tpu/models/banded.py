@@ -1,5 +1,5 @@
 """Banded affine aligner -- the A*-pruned variant as a fixed-shape masked
-band (BASELINE config 4; the TPU-native replacement for the reference's
+band (BASELINE config 4; the batched replacement for the reference's
 heap-based weighted-A* pruning)."""
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Affine-gap NW (Gotoh) aligner -- the flagship model family.
 
 Reference: n_w_align (src/needleman_wunsch_affine.rs:424-437).  Global mode
-runs the batched TPU fill (ops.nw_affine) + host co-optimal traceback.
+runs the streamed batched fill (ops.nw_affine_stream) + co-optimal or
+first-path traceback.
 In compat mode Local/SemiGlobal raise "not implemented" exactly like the
 reference (:433-434); with compat=False they are implemented
 (ops.nw_affine_modes): semi-global = free end gaps both sides, local =
@@ -25,7 +26,10 @@ from sequencealigning_tpu.ops.nw_affine_stream_modes import (
     nw_affine_stream_modes_batch,
     stream_modes_best,
 )
-from sequencealigning_tpu.ops.nw_affine_stream import nw_affine_stream_batch
+from sequencealigning_tpu.ops.nw_affine_stream import (
+    MAX_LANES,
+    nw_affine_stream_batch,
+)
 from sequencealigning_tpu.ops.traceback import (
     local_affine_traceback_pair,
     semi_global_traceback_pair,
@@ -34,12 +38,13 @@ from sequencealigning_tpu.ops.traceback import (
 
 
 class GotohAligner(Aligner):
-    # Longest db the streamed kernel can hold in VMEM (lanes at bt=8,
-    # ops.nw_affine_stream._STATE_LANE_BUDGET); beyond it pairs take the
+    # Widest row the streamed fill lays out (ops.nw_affine_stream.
+    # MAX_LANES; on a GPU rows past the CUDA kernel's 4096 lanes run its
+    # lax twin, sequencealigning_tpu.backend); beyond it pairs take the
     # tiled-score + verified-banded-alignment path (the reference has no
     # ceiling but its Rc cell grid OOMs far earlier,
     # needleman_wunsch_affine.rs:67-74).
-    long_pair_lanes = 49_152
+    long_pair_lanes = MAX_LANES
     # Band-doubling cap for the long-pair alignment search.
     long_pair_max_band = 4096
 
@@ -55,19 +60,22 @@ class GotohAligner(Aligner):
         if batch.db.shape[1] + 2 > self.long_pair_lanes:
             return self._long_batch(pairs, batch)
         n_sub = self._dirs_chunks(batch, len(pairs))
-        if n_sub > 1:
-            # Chunked dirs draining (round-1 gap: the 1-byte co-optimal
-            # dirs tensor exceeds HBM around 4096 x 2kb pairs in one
-            # sweep).  Fill-and-drain per sub-batch; each drain frees the
+        if n_sub > 1 and len(pairs) > 1:
+            # Chunked dirs draining: the 1-byte co-optimal dirs tensor
+            # outgrows device memory around 4096 x 2kb pairs in one
+            # sweep.  Fill-and-drain per sub-batch; each drain frees the
             # previous dirs tensor before the next fill allocates.
             out: List = []
             per = -(-len(pairs) // n_sub)
             for lo in range(0, len(pairs), per):
                 out.extend(self._align_batch_impl(pairs[lo : lo + per]))
             return out
-        # The streamed-pair kernel (~1.6x the plain sweep) produces
-        # identical finals/dirs semantics; pipeline depth bounded by the
-        # batch so tiny batches degenerate gracefully to depth 1.
+        # The streamed-pair fill produces the plain sweep's finals/dirs
+        # semantics at ~2x its lane occupancy; pipeline depth bounded by
+        # the batch so tiny batches degenerate gracefully to depth 1.
+        # Depth 8 is within 2% of the fastest depth measured for the CUDA
+        # fill at 4096 x 2 kb (PERF.md): deeper rows leave SMs idle,
+        # shallower ones pay the drain slot more often.
         np_slots = max(1, min(8, len(batch.query) // 8))
         first_only = getattr(self.config, "first_only", False)
         if first_only and self._walk_on_device():
@@ -77,7 +85,7 @@ class GotohAligner(Aligner):
             # small coordinate puts), sequences ship 2-bit wire-packed
             # (4x less H2D), and the batch data-parallelizes over
             # however many chips the mesh holds.  Results are
-            # bit-identical to the legacy path (same kernel, same
+            # bit-identical to the direct path (same fill, same
             # walker; pinned by the model-layer tests).
             return self._runner_first_only_batch(pairs, batch)
         res = nw_affine_stream_batch(
@@ -184,7 +192,7 @@ class GotohAligner(Aligner):
     def _walk_on_device(self) -> bool:
         """fast4 traceback routing (config.traceback): walk the dirs
         tensor on device -- fetching 2-bit op codes instead of the whole
-        0.5 byte/cell dirs tensor -- when it lives on a TPU."""
+        0.5 byte/cell dirs tensor -- when it lives on an accelerator."""
         from sequencealigning_tpu.ops.traceback_device import use_device_walk
 
         return use_device_walk(self.config)
@@ -221,15 +229,31 @@ class GotohAligner(Aligner):
             out.append((int(scores[b]), [alns[b]]))
         return out
 
-    # HBM budget for the direction tensor of one streamed fill; beyond it
-    # the batch fills in sub-batches drained sequentially.
-    dirs_hbm_budget = 9 * 2 ** 30
+    # Device-memory budget (bytes) for the direction tensor of one
+    # streamed fill; beyond it the batch fills in sub-batches drained
+    # sequentially.  None: half the device's allocator limit on a GPU
+    # (device.memory_stats()["bytes_limit"]), 9 GiB on the CPU.
+    dirs_hbm_budget = None
 
-    def _dirs_chunks(self, batch, n_pairs: int, per_byte=None) -> int:
+    def _dirs_budget(self) -> int:
+        if self.dirs_hbm_budget is not None:
+            return self.dirs_hbm_budget
+        import jax
+
+        dev = jax.devices()[0]
+        if dev.platform == "cpu":
+            return 9 * 2 ** 30
+        return dev.memory_stats()["bytes_limit"] // 2
+
+    def _dirs_chunks(self, batch, n_pairs: int, per_byte=None,
+                     engine=None) -> int:
         """Number of fill-and-drain sub-batches needed to keep the dirs
         tensor under budget.  Per pair the streamed layout stores ~s * P
         bytes (1 byte/cell full mode, 1/2 byte fast4; the textbook-modes
-        layouts are always full-byte, per_byte=1)."""
+        layouts are always full-byte, per_byte=1).  The lax twin also
+        holds the unpacked byte per cell until it packs the words; engine
+        None is the streamed global fill's engine for this width."""
+        from sequencealigning_tpu import backend
         from sequencealigning_tpu.io.encode import round_up
 
         l1 = batch.query.shape[1]
@@ -242,11 +266,13 @@ class GotohAligner(Aligner):
                 if not getattr(self.config, "first_only", False)
                 else 0.5
             )
+        if (engine or backend.engine("stream", "auto", p)) == "lax":
+            per_byte += 1.0
         total = n_pairs * s * p * per_byte
-        return max(1, int(-(-total // self.dirs_hbm_budget)))
+        return max(1, int(-(-total // self._dirs_budget())))
 
     def _long_batch(self, pairs: List[Tuple[bytes, bytes]], batch):
-        """Long-pair path (db beyond the streamed kernel's VMEM lanes):
+        """Long-pair path (db beyond the streamed fill's MAX_LANES):
 
         1. exact corner finals via the tiled fill (ops.nw_affine_tiled,
            score-only, any length);
@@ -279,7 +305,7 @@ class GotohAligner(Aligner):
         groups = {1: 1, 2: 2, 3: 4, 4: 4}.get(nb, 8)
         if nb <= 4 and sum(cells) >= 0.7 * groups * max(cells):
             # Few similar-length long pairs: ONE folded dispatch runs all
-            # of them at full sublane occupancy (fold = 8 // ceil_pow2(B));
+            # of them on all 8 rows (fold = 8 // ceil_pow2(B));
             # the fill pads every pair to the longest, so mixed sizes
             # (sum(cells) << G * max) fall through to serial folds below.
             exact = nw_affine_tiled_fold_batch(
@@ -288,9 +314,9 @@ class GotohAligner(Aligner):
                 scheme=self.config.scoring, compat=self.config.compat,
             )
         elif nb < 6:
-            # The sublane-folded fill runs each pair at full 8-sublane
-            # occupancy; serial folded calls beat the batched sweep until
-            # ~6 pairs fill the sublanes anyway.
+            # The row-folded fill runs each pair on all 8 rows; serial
+            # folded calls beat the batched sweep until ~6 pairs fill
+            # the rows anyway.
             exact = np.stack(
                 [
                     nw_affine_tiled_single(
@@ -400,8 +426,9 @@ class GotohAligner(Aligner):
         # The modes dirs layouts are full-byte: a 4096 x 2 kb batch's dirs
         # tensor alone is ~17 GB.  Fill-and-drain in sub-batches exactly
         # like the global co-optimal path.
-        n_sub = self._dirs_chunks(batch, len(pairs), per_byte=1.0)
-        if n_sub > 1:
+        n_sub = self._dirs_chunks(batch, len(pairs), per_byte=1.0,
+                                  engine="lax")
+        if n_sub > 1 and len(pairs) > 1:
             out: List = []
             per = -(-len(pairs) // n_sub)
             for lo in range(0, len(pairs), per):

@@ -4,7 +4,7 @@ Reference: wfa_align (src/wfa.rs:23-42), Global mode only (:24-27).
 
 * compat=True: the bit-faithful host emulation (ops.oracle_wfa), score
   reported as len(wavefronts) with the reference's convergence quirks.
-* compat=False: the batched TPU textbook engine (ops.wfa) -- correct
+* compat=False: the batched device textbook engine (ops.wfa) -- correct
   penalties, static-band pruning, host traceback from the offset log.
   Band escapes re-run with a doubled band (the adaptive behavior of the
   reference's trim, src/wfa.rs:490-623, as retry instead of in-loop
@@ -167,10 +167,8 @@ class WfaAligner(Aligner):
           (match=0, -x, -o, -e) whenever mismatch <= 2*gap_extend -- in that
           regime adjacent cross-direction gap runs are never optimal, so
           WFA's merged-M affine model and the Gotoh engines' M-only-opens
-          model coincide (PARITY.md quirk table).  The banded Pallas kernel
-          sweeps band cells ~80x faster than the wavefront engine's
-          gather-bound extension step (XLA per-lane gathers cost ~14 ns per
-          element; PERF.md), measured 7x end-to-end at 128 x 10 kb.
+          model coincide (PARITY.md quirk table).  The banded fill sweeps
+          band cells without the wavefront engine's per-lane gathers.
         * "wavefront" (or "auto" out-of-regime): the score-indexed
           wavefront engine (ops.wfa) -- the faithful WFA formalism, exact
           for every scheme.
@@ -194,15 +192,15 @@ class WfaAligner(Aligner):
                 return self._wavefront_batch(pairs)
             return self._fill_rest(pairs, out, self._wavefront_batch)
         # auto: WFA is output-sensitive (work ~ penalty * span), so low-
-        # divergence pairs are fastest on the scalar host engine (one
-        # L1-resident compare per live diagonal, vs a ~14 ns/element XLA
-        # gather on TPU; PERF.md) -- measured 6400 vs 730 pairs/s at
-        # 128 x 10 kb, 0.5% divergence.  High-divergence pairs hit WFA's
-        # O(penalty^2) wall and are fastest on the banded Gotoh kernel,
-        # whose cost is divergence-independent (112 vs 730 pairs/s at 5%).
-        # Route: native capped at wfa_native_s_cap penalty units (~10% of a
+        # divergence pairs go to the scalar host engine (one L1-resident
+        # compare per live diagonal, no per-lane device gather).
+        # High-divergence pairs hit WFA's O(penalty^2) wall and go to the
+        # banded Gotoh fill, whose cost is divergence-independent.  Route:
+        # native capped at wfa_native_s_cap penalty units (~10% of a
         # divergent pair's full work), escapees to the banded route (in
-        # its model-matched variant, so every scheme gets the TPU path).
+        # its model-matched variant, so every scheme gets the device path).
+        # This routing was tuned on another accelerator; its GPU numbers
+        # are not measured (ROADMAP S6).
         out = self._native_raw(pairs, s_max=self.wfa_native_s_cap)
         if out is None:
             return self._banded_route(pairs, model=model)

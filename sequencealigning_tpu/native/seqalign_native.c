@@ -1,10 +1,10 @@
 /* Native runtime components: FASTA byte-scan and traceback walkers.
  *
  * The reference implements its whole runtime in native code (Rust); this
- * framework keeps the TPU compute path in JAX/Pallas and implements the
+ * framework keeps the device compute path in JAX and CUDA and implements the
  * host-side hot loops natively in C: the byte-level FASTA state machine
  * (reference: src/parse.rs:61-98) and the per-pair traceback walk over the
- * packed direction words the TPU fill streams to HBM (the O(n+m)
+ * packed direction words the device fill writes (the O(n+m)
  * pointer-chase that dominates host time in high-throughput streaming).
  *
  * Build: cc -O2 -shared -fPIC -o libseqalign_native.so seqalign_native.c
@@ -736,7 +736,7 @@ long fast4_first_path(const uint32_t *dirs, long rows, long p, long row,
 
 /* Accessor abstraction over "furthest-reaching offset of plane p at
  * penalty s, diagonal k": the walk below is shared by the banded int16
- * offset-log layout (TPU engine) and the exact level-array layout (native
+ * offset-log layout (device engine) and the exact level-array layout (native
  * engine) so the tie order (mismatch > I > D) has exactly one
  * implementation. */
 typedef int32_t (*TWfAt)(const void *ctx, int plane, long s, long k);
@@ -997,13 +997,13 @@ void fast4_first_path_batch(const uint32_t *dirs, long rows, long p,
  * scheme, no band certificate needed.  Same clean convention as ops/wfa
  * (diag k = y - x, offset t = x = db chars consumed) and the same
  * recurrence/masking, so stored offsets -- and therefore the shared
- * wfa_tb_walk tie order -- agree with the TPU engine wherever its band
+ * wfa_tb_walk tie order -- agree with the device engine wherever its band
  * covers the span (tests fuzz byte-equality at saturating bands).
  *
- * Rationale (PERF.md): the per-step extension needs one random access per
- * live diagonal; XLA lowers that to a ~14 ns/element gather, which is
- * ~90% of the TPU engine's step time, while here it is an L1-resident
- * u64-chunked compare.  WFA is output-sensitive (work ~ penalty *
+ * Rationale: the per-step extension needs one random access per live
+ * diagonal; XLA lowers that to a per-element gather, the bulk of the
+ * device engine's step time, while here it is an L1-resident u64-chunked
+ * compare.  WFA is output-sensitive (work ~ penalty *
  * span), so the scalar engine wins exactly where WFA itself wins.
  */
 

@@ -1,33 +1,29 @@
-"""Batched affine-gap Needleman-Wunsch (Gotoh) fill for TPU.
+"""Batched affine-gap Needleman-Wunsch (Gotoh) fill, one pair per row.
 
-TPU-native design (not a port): the O(n*m) three-plane DP is swept along
-anti-diagonals.  Cells of one anti-diagonal are independent, so a whole
-diagonal is one fixed-shape vector op with the db axis (x) on the 128-wide
-lane dimension and the batch on sublanes -- the VPU processes
-(B, P) cells per instruction.  The three Gotoh recurrences only reference
-diagonals d-1 and d-2, so state is five rolling VMEM buffers; the
-lane-shifted reads (x-1) are single-lane rotates.  Traceback information is
-emitted as one byte per cell (see ops.dirbits), packed four diagonals per
-uint32 word, streamed to HBM chunk-by-chunk through the Pallas grid.
+The O(n*m) three-plane DP is swept along anti-diagonals.  Cells of one
+anti-diagonal are independent, so a whole diagonal is one fixed-shape
+vector op with the db axis (x) on the lane dimension and the batch on
+rows.  The three Gotoh recurrences only reference diagonals d-1 and d-2,
+so state is five rolling buffers; the lane-shifted reads (x-1) are
+single-lane rotates.  Traceback information is emitted as one byte per
+cell (see ops.dirbits), packed four diagonals per uint32 word.
 
 Reference semantics reproduced bit-for-bit in compat mode (see
 ops.oracle_gotoh for the quirk list); the oracle is the test ground truth.
 
-Two interchangeable implementations share the single-step function:
-  * gotoh_fill_lax    -- pure jax.lax.scan, runs anywhere (CPU tests).
-  * gotoh_fill_pallas -- the TPU kernel (auto-interprets off-TPU).
+gotoh_fill_lax is the jax.lax.scan implementation; its single step
+(_gotoh_step) and boundary values are shared by the streamed fills.  The
+streamed fill (ops.nw_affine_stream) supersedes this one for throughput.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from sequencealigning_tpu.config import NEG_INF, ScoringScheme
 from sequencealigning_tpu.io.encode import round_up as _round_up
@@ -117,7 +113,7 @@ def _gotoh_step(
     M = H2r + sub
     restart = None
     if mode == "local":
-        # int32, not bool: Mosaic cannot broadcast/rotate i1 vectors.
+        # int32, not bool, so it ORs straight into the dirs byte.
         restart = (M < 0).astype(jnp.int32)
         M = jnp.maximum(M, 0)
     dd = M1r + o
@@ -216,161 +212,6 @@ def _gotoh_fill_lax(
 
 
 # ---------------------------------------------------------------------------
-# Pallas TPU kernel
-# ---------------------------------------------------------------------------
-
-
-def _gotoh_kernel(
-    # inputs
-    dsum_ref, n2mask_ref, seq1_ref, s2v_ref,
-    # outputs
-    finals_m_ref, finals_i_ref, finals_d_ref, dirs_ref,
-    # scratch
-    H2, H1, M1, I1, D1, s1d,
-    *, l1: int, chunk: int,
-    scheme: ScoringScheme, compat: bool, wildcard: bool, with_dirs: bool,
-):
-    c = pl.program_id(1)
-    B, P = s2v_ref.shape
-    col_iota = jax.lax.broadcasted_iota(jnp.int32, (B, P), 1)
-    roll = lambda a: pltpu.roll(a, 1, axis=1)
-
-    @pl.when(c == 0)
-    def _init():
-        neg = jnp.full((B, P), NEG_INF, dtype=jnp.int32)
-        H2[...] = neg
-        H1[...] = neg
-        M1[...] = neg
-        I1[...] = neg
-        D1[...] = neg
-        s1d[...] = jnp.zeros((B, P), jnp.int32)
-        finals_m_ref[...] = jnp.zeros((B, P), jnp.int32)
-        finals_i_ref[...] = jnp.zeros((B, P), jnp.int32)
-        finals_d_ref[...] = jnp.zeros((B, P), jnp.int32)
-
-    dsum = dsum_ref[...]
-    n2mask = n2mask_ref[...] != 0
-    s2v = s2v_ref[...]
-    # Corner captures only happen in [dmin, dmax]; gate the (rare) capture
-    # selects on it so the steady-state step stays lean.
-    dmin = jnp.min(dsum)
-    dmax = jnp.max(dsum)
-
-    lane128 = jax.lax.broadcasted_iota(jnp.int32, (B, 128), 1)
-
-    def seq1_column(d):
-        """seq1[:, d-1] as (B, 1).  Mosaic requires lane-dim dynamic loads to
-        be 128-aligned, so load the aligned 128-block and mask-reduce."""
-        idx = jnp.clip(d - 1, 0, seq1_ref.shape[1] - 1)
-        base = pl.multiple_of((idx // 128) * 128, 128)
-        block = seq1_ref[:, pl.ds(base, 128)]
-        off = idx - base
-        return jnp.sum(
-            jnp.where(lane128 == off, block, 0), axis=1, keepdims=True
-        )
-
-    def group_body(g, carry):
-        # DP state is carried as loop values (registers), not scratch
-        # round-trips -- scratch is only touched at chunk boundaries.
-        vH2, vH1, vM1, vI1, vD1, vs1d = carry
-        base = c * chunk + g * 4
-        wacc = None
-        for u in range(4):
-            d = base + u
-            seq1_col = seq1_column(d)
-            M, I, D, H, vs1d, byte = _gotoh_step(
-                vH2, vH1, vM1, vI1, vD1, vs1d,
-                seq1_col, s2v, col_iota, d,
-                scheme, compat, wildcard, roll, with_dirs,
-            )
-            vH2, vH1, vM1, vI1, vD1 = vH1, H, M, I, D
-
-            @pl.when(jnp.logical_and(d >= dmin, d <= dmax))
-            def _capture(M=M, I=I, D=D, d=d):
-                cap = jnp.logical_and(dsum == d, n2mask)
-                finals_m_ref[...] += jnp.where(cap, M, 0)
-                finals_i_ref[...] += jnp.where(cap, I, 0)
-                finals_d_ref[...] += jnp.where(cap, D, 0)
-
-            if with_dirs:
-                word = byte.astype(jnp.uint32) << (8 * u)
-                wacc = word if u == 0 else wacc | word
-        if with_dirs:
-            dirs_ref[pl.ds(g, 1), :, :] = wacc[None]
-        return (vH2, vH1, vM1, vI1, vD1, vs1d)
-
-    carry0 = (H2[...], H1[...], M1[...], I1[...], D1[...], s1d[...])
-    carry = jax.lax.fori_loop(0, chunk // 4, group_body, carry0)
-    H2[...], H1[...], M1[...], I1[...], D1[...], s1d[...] = carry
-
-
-def gotoh_fill_pallas(
-    seq1, s2v, dsum, n2mask, l1: int, l2: int,
-    scheme: ScoringScheme, compat: bool, wildcard: bool, with_dirs: bool,
-    chunk: int = 64, interpret: Optional[bool] = None,
-):
-    """Invoke the Pallas kernel.  seq1: (B, L1p); s2v: (B, P) shifted db
-    codes (s2v[:, x] = db[x-1]); dsum: (B, 1) = n1+n2; n2mask: (B, P) one-hot
-    of lane n2.  B must be a multiple of 8."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if chunk % 4 != 0:
-        raise ValueError(f"chunk must be a multiple of 4, got {chunk}")
-    B, P = s2v.shape
-    BT = 8 if B % 8 == 0 else B
-    NB = B // BT
-    D_total = l1 + l2 + 1
-    NC = _round_up(D_total, chunk) // chunk
-    D4 = NC * chunk // 4
-
-    grid = (NB, NC)
-    kernel = functools.partial(
-        _gotoh_kernel,
-        l1=l1, chunk=chunk, scheme=scheme, compat=compat,
-        wildcard=wildcard, with_dirs=with_dirs,
-    )
-    out_shape = [
-        jax.ShapeDtypeStruct((B, P), jnp.int32),
-        jax.ShapeDtypeStruct((B, P), jnp.int32),
-        jax.ShapeDtypeStruct((B, P), jnp.int32),
-        jax.ShapeDtypeStruct((D4 if with_dirs else 1, B, P), jnp.uint32),
-    ]
-    bspec = lambda shp, imap: pl.BlockSpec(shp, imap, memory_space=pltpu.VMEM)
-    in_specs = [
-        bspec((BT, 1), lambda b, c: (b, 0)),
-        bspec((BT, P), lambda b, c: (b, 0)),
-        bspec((BT, seq1.shape[1]), lambda b, c: (b, 0)),
-        bspec((BT, P), lambda b, c: (b, 0)),
-    ]
-    out_specs = [
-        bspec((BT, P), lambda b, c: (b, 0)),
-        bspec((BT, P), lambda b, c: (b, 0)),
-        bspec((BT, P), lambda b, c: (b, 0)),
-        bspec(
-            (chunk // 4 if with_dirs else 1, BT, P),
-            (lambda b, c: (c, b, 0)) if with_dirs else (lambda b, c: (0, b, 0)),
-        ),
-    ]
-    scratch = [pltpu.VMEM((BT, P), jnp.int32) for _ in range(6)]
-    fm, fi, fd, dirs = pl.pallas_call(
-        kernel,
-        grid=grid,
-        out_shape=out_shape,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        scratch_shapes=scratch,
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-        ),
-    )(dsum, n2mask, seq1, s2v)
-    finals = jnp.stack(
-        [fm.sum(axis=1), fi.sum(axis=1), fd.sum(axis=1)], axis=1
-    )
-    return finals, (dirs if with_dirs else None)
-
-
-# ---------------------------------------------------------------------------
 # Public entry
 # ---------------------------------------------------------------------------
 
@@ -384,16 +225,13 @@ def nw_affine_batch(
     compat: bool = True,
     wildcard: bool = False,
     with_dirs: bool = True,
-    backend: str = "auto",
-    chunk: int = 64,
 ) -> GotohResult:
     """Batched Gotoh fill.
 
     query/db: (B, L) int32 encoded batches (io.encode).  Returns finals
     (B, 3) = M/I/D scores at each pair's true corner, plus packed direction
-    words for host traceback (ops.traceback).
-
-    backend: "auto" (pallas on TPU, lax elsewhere), "pallas", or "lax".
+    words for host traceback (ops.traceback).  The lax.scan fill runs on
+    every platform.
     """
     B, L1 = query.shape
     _, L2 = db.shape
@@ -407,20 +245,9 @@ def nw_affine_batch(
         np.arange(P, dtype=np.int32)[None, :] == np.asarray(db_len)[:, None]
     ).astype(np.int32)
 
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "lax"
-    if backend == "pallas":
-        finals, dirs = gotoh_fill_pallas(
-            jnp.asarray(seq1), jnp.asarray(s2v), jnp.asarray(dsum),
-            jnp.asarray(n2mask), L1, L2, scheme, compat, wildcard, with_dirs,
-            chunk=chunk,
-        )
-    elif backend == "lax":
-        finals, dirs = _gotoh_fill_lax(
-            jnp.asarray(seq1), jnp.asarray(s2v), jnp.asarray(dsum),
-            jnp.asarray(n2mask) != 0, L1, L2, scheme, compat, wildcard,
-            with_dirs,
-        )
-    else:
-        raise ValueError(f"unknown backend {backend!r}")
+    finals, dirs = _gotoh_fill_lax(
+        jnp.asarray(seq1), jnp.asarray(s2v), jnp.asarray(dsum),
+        jnp.asarray(n2mask) != 0, L1, L2, scheme, compat, wildcard,
+        with_dirs,
+    )
     return GotohResult(finals=finals, dirs=dirs)

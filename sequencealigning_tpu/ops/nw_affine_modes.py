@@ -2,7 +2,7 @@
 
 The reference declares these "not implemented" for its affine NW
 (needleman_wunsch_affine.rs:433-434, with empty fill/traceback stubs at
-:238-239, :331-332); this module implements them TPU-natively on the same
+:238-239, :331-332); this module implements them on the same
 anti-diagonal machinery as ops.nw_affine:
 
 * semi-global: free end gaps in BOTH sequences (matching the A* variant's
@@ -25,8 +25,6 @@ from typing import NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from sequencealigning_tpu.config import NEG_INF, ScoringScheme
 from sequencealigning_tpu.io.encode import round_up as _round_up
@@ -36,7 +34,7 @@ from sequencealigning_tpu.ops.nw_affine import _gotoh_step
 
 class ModesResult(NamedTuple):
     """best/best_x/best_y: (B,) per-pair end cell (score, x, y), reduced
-    on device from the kernel's per-lane running-argmax buffers -- shipping
+    on device from the fill's per-lane running-argmax buffers -- shipping
     the raw (B, P) buffers to the host costs 2*B*P*4 bytes per fill and
     dominates end-to-end time on any real interconnect.
     dirs: (D4, B, P) packed bytes (ops.dirbits layout + LSTART)."""
@@ -125,175 +123,6 @@ def _fill_modes_lax(
     return bv, bd, dirs
 
 
-# ---------------------------------------------------------------------------
-# Pallas TPU kernel (same structure as ops.nw_affine._gotoh_kernel; the
-# corner capture is replaced by the per-lane running argmax bookkeeping)
-# ---------------------------------------------------------------------------
-
-
-def _modes_kernel(
-    # inputs
-    n1_ref, n2_ref, seq1_ref, s2v_ref,
-    # outputs
-    bv_ref, bd_ref, dirs_ref,
-    # scratch
-    H2, H1, M1, I1, D1, s1d,
-    *, chunk: int,
-    scheme: ScoringScheme, wildcard: bool, local: bool, with_dirs: bool,
-):
-    c = pl.program_id(1)
-    B, P = s2v_ref.shape
-    NEGBIG = jnp.int32(-(2 ** 24))
-    col_iota = jax.lax.broadcasted_iota(jnp.int32, (B, P), 1)
-    roll = lambda a: pltpu.roll(a, 1, axis=1)
-    mode = "local" if local else "semi"
-    n1v = n1_ref[...]
-    n2v = n2_ref[...]
-    s2v = s2v_ref[...]
-
-    @pl.when(c == 0)
-    def _init():
-        neg = jnp.full((B, P), NEG_INF, dtype=jnp.int32)
-        H2[...] = neg
-        H1[...] = neg
-        M1[...] = neg
-        I1[...] = neg
-        D1[...] = neg
-        s1d[...] = jnp.zeros((B, P), jnp.int32)
-        bv_ref[...] = jnp.full((B, P), NEGBIG, jnp.int32)
-        bd_ref[...] = jnp.zeros((B, P), jnp.int32)
-
-    lane128 = jax.lax.broadcasted_iota(jnp.int32, (B, 128), 1)
-
-    def seq1_column(d):
-        idx = jnp.clip(d - 1, 0, seq1_ref.shape[1] - 1)
-        base = pl.multiple_of((idx // 128) * 128, 128)
-        block = seq1_ref[:, pl.ds(base, 128)]
-        off = idx - base
-        return jnp.sum(
-            jnp.where(lane128 == off, block, 0), axis=1, keepdims=True
-        )
-
-    def group_body(g, carry):
-        vH2, vH1, vM1, vI1, vD1, vs1d, bv, bd = carry
-        base = c * chunk + g * 4
-        wacc = None
-        for u in range(4):
-            d = base + u
-            seq1_col = seq1_column(d)
-            M, I, D, H, vs1d, byte = _gotoh_step(
-                vH2, vH1, vM1, vI1, vD1, vs1d,
-                seq1_col, s2v, col_iota, d,
-                scheme, False, wildcard, roll, with_dirs, mode=mode,
-            )
-            vH2, vH1, vM1, vI1, vD1 = vH1, H, M, I, D
-
-            y = d - col_iota
-            valid = jnp.logical_and(
-                col_iota <= n2v, jnp.logical_and(y >= 0, y <= n1v)
-            )
-            if local:
-                cand = jnp.logical_and(
-                    valid, jnp.logical_and(col_iota >= 1, y >= 1)
-                )
-                score_here = M
-            else:
-                cand = jnp.logical_and(
-                    valid,
-                    jnp.logical_or(col_iota == n2v, y == n1v),
-                )
-                score_here = H
-            upd = jnp.logical_and(cand, score_here > bv)
-            bv = jnp.where(upd, score_here, bv)
-            bd = jnp.where(upd, d, bd)
-
-            if with_dirs:
-                word = byte.astype(jnp.uint32) << (8 * u)
-                wacc = word if u == 0 else wacc | word
-        if with_dirs:
-            dirs_ref[pl.ds(g, 1), :, :] = wacc[None]
-        return (vH2, vH1, vM1, vI1, vD1, vs1d, bv, bd)
-
-    carry0 = (
-        H2[...], H1[...], M1[...], I1[...], D1[...], s1d[...],
-        bv_ref[...], bd_ref[...],
-    )
-    carry = jax.lax.fori_loop(0, chunk // 4, group_body, carry0)
-    H2[...], H1[...], M1[...], I1[...], D1[...], s1d[...] = carry[:6]
-    bv_ref[...] = carry[6]
-    bd_ref[...] = carry[7]
-
-
-def modes_fill_pallas(
-    seq1, s2v, n1v, n2v, l1: int, l2: int,
-    scheme: ScoringScheme, wildcard: bool, local: bool, with_dirs: bool,
-    chunk: int = 128, interpret=None,
-):
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    B, P = s2v.shape
-    BT = 16 if B % 16 == 0 else (8 if B % 8 == 0 else B)
-    NB = B // BT
-    D_total = l1 + l2 + 1
-    NC = _round_up(D_total, chunk) // chunk
-    D4 = NC * chunk // 4
-
-    grid = (NB, NC)
-    kernel = functools.partial(
-        _modes_kernel, chunk=chunk, scheme=scheme,
-        wildcard=wildcard, local=local, with_dirs=with_dirs,
-    )
-    bspec = lambda shp, imap: pl.BlockSpec(shp, imap, memory_space=pltpu.VMEM)
-    in_specs = [
-        bspec((BT, 1), lambda b, c: (b, 0)),
-        bspec((BT, 1), lambda b, c: (b, 0)),
-        bspec((BT, seq1.shape[1]), lambda b, c: (b, 0)),
-        bspec((BT, P), lambda b, c: (b, 0)),
-    ]
-    out_specs = [
-        bspec((BT, P), lambda b, c: (b, 0)),
-        bspec((BT, P), lambda b, c: (b, 0)),
-        bspec(
-            (chunk // 4 if with_dirs else 1, BT, P),
-            (lambda b, c: (c, b, 0)) if with_dirs else (lambda b, c: (0, b, 0)),
-        ),
-    ]
-    out_shape = [
-        jax.ShapeDtypeStruct((B, P), jnp.int32),
-        jax.ShapeDtypeStruct((B, P), jnp.int32),
-        jax.ShapeDtypeStruct((D4 if with_dirs else 1, B, P), jnp.uint32),
-    ]
-    scratch = [pltpu.VMEM((BT, P), jnp.int32) for _ in range(6)]
-    bv, bd, dirs = pl.pallas_call(
-        kernel,
-        grid=grid,
-        out_shape=out_shape,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        scratch_shapes=scratch,
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-        ),
-    )(n1v, n2v, seq1, s2v)
-    return bv, bd, (dirs if with_dirs else None)
-
-
-@functools.lru_cache(maxsize=64)
-def _jitted_modes_pallas(l1, l2, scheme, wildcard, local, with_dirs):
-    """Fill + per-pair argmax reduction as ONE jitted dispatch (the host
-    only ever needs each pair's end cell, never the per-lane buffers)."""
-
-    def run(seq1, s2v, n1v, n2v):
-        bv, bd, dirs = modes_fill_pallas(
-            seq1, s2v, n1v, n2v, l1=l1, l2=l2, scheme=scheme,
-            wildcard=wildcard, local=local, with_dirs=with_dirs,
-        )
-        return modes_reduce(bv, bd), dirs
-
-    return jax.jit(run)
-
-
 def nw_affine_modes_batch(
     query: np.ndarray,
     db: np.ndarray,
@@ -303,11 +132,9 @@ def nw_affine_modes_batch(
     scheme: ScoringScheme = ScoringScheme(),
     wildcard: bool = False,
     with_dirs: bool = True,
-    backend: str = "auto",
 ) -> ModesResult:
-    """Batched semi-global (local=False) or local (local=True) affine fill.
-
-    backend: "auto" (pallas on TPU, lax elsewhere), "pallas", or "lax".
+    """Batched semi-global (local=False) or local (local=True) affine fill
+    (the lax.scan fill, on every platform).
 
     Eager host-level entry point (it stages inputs with NumPy): the
     (B,) end-cell triple is fetched to the host in one device_get — a
@@ -319,23 +146,13 @@ def nw_affine_modes_batch(
     P = _round_up(L2 + 1, 128)
     s2v = np.zeros((B, P), dtype=np.int32)
     s2v[:, 1 : L2 + 1] = db
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "lax"
     n1v = jnp.asarray(query_len, jnp.int32)[:, None]
     n2v = jnp.asarray(db_len, jnp.int32)[:, None]
-    if backend == "pallas":
-        fn = _jitted_modes_pallas(L1, L2, scheme, wildcard, local, with_dirs)
-        (best, x, y), dirs = fn(
-            jnp.asarray(query, jnp.int32), jnp.asarray(s2v), n1v, n2v
-        )
-    elif backend == "lax":
-        bv, bd, dirs = _fill_modes_lax(
-            jnp.asarray(query, jnp.int32), jnp.asarray(s2v), n1v, n2v,
-            L1, L2, scheme, wildcard, local, with_dirs,
-        )
-        best, x, y = modes_reduce(bv, bd)
-    else:
-        raise ValueError(f"unknown backend {backend!r}")
+    bv, bd, dirs = _fill_modes_lax(
+        jnp.asarray(query, jnp.int32), jnp.asarray(s2v), n1v, n2v,
+        L1, L2, scheme, wildcard, local, with_dirs,
+    )
+    best, x, y = modes_reduce(bv, bd)
     best, x, y = jax.device_get((best, x, y))
     return ModesResult(best=best, best_x=x, best_y=y, dirs=dirs)
 

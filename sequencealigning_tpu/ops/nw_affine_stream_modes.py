@@ -3,7 +3,7 @@
 The textbook semi-global and local (Smith-Waterman-affine) modes -- the
 reference declares them "not implemented" for its affine NW
 (needleman_wunsch_affine.rs:433-434) -- on the FLAGSHIP streamed-pair
-engine (ops.nw_affine_stream): each sublane row pipelines a new pair into
+engine (ops.nw_affine_stream): each stream row pipelines a new pair into
 the lane dimension every S steps, so the plain modes kernel's ~50% lane
 occupancy (ops.nw_affine_modes) becomes ~90% and the fill rides the same
 batch-scale amortization as the global headline.
@@ -14,8 +14,8 @@ Differences from the global streamed fill:
   mode additionally clamps M = max(M, 0) with restarts recorded as the
   LSTART dirs bit (the _stream_step ``mode`` hook);
 * the corner capture is replaced by per-slot running argmax bookkeeping:
-  the even/odd parity output blocks accumulate (best score, its pair-local
-  diagonal) per lane instead of (M, I, D) finals -- eligibility is every
+  (best score, its pair-local diagonal) per lane and slot instead of
+  (M, I, D) finals -- eligibility is every
   valid interior cell (local, score = M) or the last row/column (semi,
   score = H), exactly as ops.nw_affine_modes._fill_modes_lax;
 * dirs are always the full byte layout (the modes walkers need the
@@ -34,15 +34,11 @@ from typing import NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from sequencealigning_tpu.config import NEG_INF, ScoringScheme
 from sequencealigning_tpu.ops.nw_affine_modes import modes_reduce
 from sequencealigning_tpu.ops.nw_affine_stream import (
     StreamPlan,
-    _STATE_LANE_BUDGET,
-    _device_stream_inputs,
     _stream_step,
     build_stream_inputs,
     plan_stream,
@@ -175,302 +171,8 @@ def gotoh_fill_stream_modes_lax(
 
 
 # ---------------------------------------------------------------------------
-# Pallas TPU kernel
-# ---------------------------------------------------------------------------
-
-
-def _stream_modes_kernel(
-    # inputs
-    dsy_ref, n2y_ref, dso_ref, n2o_ref, q_ref, d2_ref,
-    # outputs
-    bv_e, bd_e, bv_o, bd_o, dirs_ref,
-    # scratch
-    H2, H1, M1, I1, D1, s1d, s2v,
-    *, plan: StreamPlan,
-    scheme: ScoringScheme, wildcard: bool, mode: str, with_dirs: bool,
-    unroll: int = 0,
-    neg_sent: int = None,
-):
-    upack = 4
-    shift = 8
-    U = unroll if unroll else upack
-    assert U % upack == 0 and plan.chunk % U == 0, (U, upack, plan.chunk)
-    k = pl.program_id(1)
-    cc = pl.program_id(2)
-    BT, P = s2v.shape
-    chunk = plan.chunk
-    col_iota = jax.lax.broadcasted_iota(jnp.int32, (BT, P), 1)
-    lane_0 = col_iota == 0
-    # i16 state uses jnp.roll (i16 pltpu.roll crashes this Mosaic).
-    roll = lambda a: (
-        jnp.roll(a, 1, axis=1)
-        if a.dtype == jnp.int16
-        else pltpu.roll(a, 1, axis=1)
-    )
-    dirs_mode = "full" if with_dirs else False
-
-    sdt = H2.dtype
-    state_neg = NEGBIG if neg_sent is None else neg_sent
-
-    @pl.when(jnp.logical_and(k == 0, cc == 0))
-    def _init_state():
-        neg = jnp.full((BT, P), state_neg, dtype=sdt)
-        H2[...] = neg
-        H1[...] = neg
-        M1[...] = neg
-        I1[...] = neg
-        D1[...] = neg
-        s1d[...] = jnp.zeros((BT, P), jnp.int32)
-        s2v[...] = jnp.zeros((BT, P), jnp.int32)
-
-    negb = jnp.full((BT, P), NEGBIG, jnp.int32)
-    zero = jnp.zeros((BT, P), jnp.int32)
-
-    @pl.when(jnp.logical_and(cc == 0, k % 2 == 0))
-    def _init_even():
-        bv_e[0] = negb
-        bd_e[0] = zero
-
-    @pl.when(jnp.logical_and(cc == 0, jnp.logical_or(k == 0, k % 2 == 1)))
-    def _init_odd():
-        bv_o[0] = negb
-        bd_o[0] = zero
-
-    dsy = dsy_ref[0]          # (BT, 1): younger pair's n1+n2 (or -1)
-    n2y = n2y_ref[0]
-    dso = dso_ref[0]          # older pair (slot k-1)
-    n2o = n2o_ref[0]
-    k_even = k % 2 == 0
-
-    p0 = cc * chunk
-    lanec = jax.lax.broadcasted_iota(jnp.int32, (BT, chunk), 1)
-    qd_pack = q_ref[...] | (d2_ref[...] << 8)
-
-    def gather_qd(i):
-        v = jnp.sum(
-            jnp.where(lanec == i, qd_pack, 0), axis=1, keepdims=True
-        )
-        return v & 0xFF, v >> 8
-
-    negb_v = jnp.full((BT, P), NEGBIG, jnp.int32)
-    zero_v = jnp.zeros((BT, P), jnp.int32)
-
-    def group_body(g, carry):
-        vH2, vH1, vM1, vI1, vD1, vs1d, vs2v = carry
-        wacc = None
-        # Per-group register accumulators for the running argmax (one
-        # parity-gated block read-modify-write per group, not per step).
-        # Strict > everywhere preserves the sequential earliest-diagonal
-        # tie rule of the lax reference.
-        gv_y, gd_y = negb_v, zero_v
-        gv_o, gd_o = negb_v, zero_v
-        for u in range(U):
-            i = g * U + u          # step index within chunk
-            p = p0 + i             # younger local diagonal
-            qc, dc = gather_qd(i)
-            M, I, D, H, vs1d, vs2v, byte = _stream_step(
-                vH2, vH1, vM1, vI1, vD1, vs1d, vs2v,
-                qc, dc, col_iota, lane_0, p,
-                scheme, False, wildcard, roll, dirs_mode, mode=mode,
-                neg_sent=NEG_INF if neg_sent is None else neg_sent,
-            )
-            vH2, vH1, vM1, vI1, vD1 = vH1, H, M, I, D
-
-            # Running argmax for the younger (this slot, local diag p) and
-            # older (slot k-1, local diag p + s) pairs.  The int32 cast is
-            # free for i32 state and one convert for i16 (the argmax
-            # blocks stay int32 either way).
-            elig_y, sc_y = _mode_candidates(
-                mode, M, I, D, H, col_iota, p, dsy, n2y
-            )
-            sc_y = sc_y.astype(jnp.int32)
-            po = p + plan.s
-            elig_o, sc_o = _mode_candidates(
-                mode, M, I, D, H, col_iota, po, dso, n2o
-            )
-            sc_o = sc_o.astype(jnp.int32)
-            upd = jnp.logical_and(elig_y, sc_y > gv_y)
-            gv_y = jnp.where(upd, sc_y, gv_y)
-            gd_y = jnp.where(upd, p, gd_y)
-            updo = jnp.logical_and(elig_o, sc_o > gv_o)
-            gv_o = jnp.where(updo, sc_o, gv_o)
-            gd_o = jnp.where(updo, po, gd_o)
-
-            if with_dirs:
-                word = byte.astype(jnp.uint32) << (shift * (u % upack))
-                wacc = word if u % upack == 0 else wacc | word
-                if (u + 1) % upack == 0:
-                    dirs_ref[pl.ds(g * (U // upack) + u // upack, 1), :, :] = (
-                        wacc[None]
-                    )
-
-        # Merge the group's register argmax into the parity blocks (the
-        # younger pair's block has parity k, the older's parity k-1).
-        @pl.when(k_even)
-        def _merge_even(gv_y=gv_y, gd_y=gd_y, gv_o=gv_o, gd_o=gd_o):
-            upd = gv_y > bv_e[0]
-            bv_e[0] = jnp.where(upd, gv_y, bv_e[0])
-            bd_e[0] = jnp.where(upd, gd_y, bd_e[0])
-            updo = gv_o > bv_o[0]
-            bv_o[0] = jnp.where(updo, gv_o, bv_o[0])
-            bd_o[0] = jnp.where(updo, gd_o, bd_o[0])
-
-        @pl.when(jnp.logical_not(k_even))
-        def _merge_odd(gv_y=gv_y, gd_y=gd_y, gv_o=gv_o, gd_o=gd_o):
-            upd = gv_y > bv_o[0]
-            bv_o[0] = jnp.where(upd, gv_y, bv_o[0])
-            bd_o[0] = jnp.where(upd, gd_y, bd_o[0])
-            updo = gv_o > bv_e[0]
-            bv_e[0] = jnp.where(updo, gv_o, bv_e[0])
-            bd_e[0] = jnp.where(updo, gd_o, bd_e[0])
-
-        return (vH2, vH1, vM1, vI1, vD1, vs1d, vs2v)
-
-    carry0 = (H2[...], H1[...], M1[...], I1[...], D1[...], s1d[...], s2v[...])
-    carry = jax.lax.fori_loop(0, chunk // U, group_body, carry0)
-    H2[...], H1[...], M1[...], I1[...], D1[...], s1d[...], s2v[...] = carry
-
-
-def gotoh_fill_stream_modes_pallas(
-    qstream, dstream, dsy, n2y, dso, n2o,
-    plan: StreamPlan, scheme: ScoringScheme,
-    wildcard: bool, mode: str, with_dirs: bool,
-    interpret: Optional[bool] = None,
-    bt: int = 8,
-    unroll: int = 32,
-    state_dtype=jnp.int32,
-):
-    """Same input layout as gotoh_fill_stream_pallas.  Returns
-    ((bv_e, bd_e, bv_o, bd_o) each (J, n_rows, P), dirs)."""
-    assert mode in ("semi", "local"), mode
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    R = qstream.shape[0]
-    P = plan.p
-    neg_sent = None
-    if state_dtype == jnp.int16:
-        neg_sent = stream_i16_neg(scheme, plan)
-        if neg_sent is None:
-            raise ValueError("scheme x shape does not fit int16 state")
-        if bt < 16:
-            bt = 16  # int16 min sublane tile is (16, 128)
-    BT = bt if R % bt == 0 else (8 if R % 8 == 0 else R)
-    if not interpret and state_dtype == jnp.int16 and BT % 16:
-        raise ValueError(
-            f"int16 state needs n_rows divisible by 16 (got {R}); raise "
-            "np_slots/batch so n_rows is a multiple of 16, or use int32"
-        )
-    bytes_per_lane = 5 * jnp.dtype(state_dtype).itemsize + 2 * 4
-    if not interpret and BT * P * bytes_per_lane > (
-        8 * _STATE_LANE_BUDGET * 28
-    ):
-        raise ValueError(
-            f"lane width {P} with row tile bt={BT} exceeds the VMEM state "
-            f"budget ({8 * _STATE_LANE_BUDGET * 28 // (BT * bytes_per_lane)}"
-            " lanes at this bt/dtype)"
-        )
-    NB = R // BT
-    NCC = plan.s // plan.chunk
-    J = (plan.n_slots_g + 1) // 2
-    T4 = plan.t_total // 4
-
-    grid = (NB, plan.n_slots_g, NCC)
-    kernel = functools.partial(
-        _stream_modes_kernel, plan=plan, scheme=scheme,
-        wildcard=wildcard, mode=mode, with_dirs=with_dirs, unroll=unroll,
-        neg_sent=neg_sent,
-    )
-    bspec = lambda shp, imap: pl.BlockSpec(shp, imap, memory_space=pltpu.VMEM)
-    in_specs = [
-        bspec((1, BT, 1), lambda b, k, cc: (k, b, 0)),        # dsy
-        bspec((1, BT, 1), lambda b, k, cc: (k, b, 0)),        # n2y
-        bspec((1, BT, 1), lambda b, k, cc: (k, b, 0)),        # dso (shifted)
-        bspec((1, BT, 1), lambda b, k, cc: (k, b, 0)),        # n2o (shifted)
-        bspec((BT, plan.chunk), lambda b, k, cc: (b, k * NCC + cc)),
-        bspec((BT, plan.chunk), lambda b, k, cc: (b, k * NCC + cc)),
-    ]
-    fspec_e = bspec((1, BT, P), lambda b, k, cc: (k // 2, b, 0))
-    fspec_o = bspec(
-        (1, BT, P), lambda b, k, cc: (jnp.maximum(k - 1, 0) // 2, b, 0)
-    )
-    out_specs = [
-        fspec_e, fspec_e, fspec_o, fspec_o,
-        bspec(
-            (plan.chunk // 4 if with_dirs else 1, BT, P),
-            (lambda b, k, cc: (k * NCC + cc, b, 0))
-            if with_dirs
-            else (lambda b, k, cc: (0, b, 0)),
-        ),
-    ]
-    out_shape = [jax.ShapeDtypeStruct((J, R, P), jnp.int32)] * 4 + [
-        jax.ShapeDtypeStruct((T4 if with_dirs else 1, R, P), jnp.uint32)
-    ]
-    scratch = [pltpu.VMEM((BT, P), state_dtype) for _ in range(5)] + [
-        pltpu.VMEM((BT, P), jnp.int32) for _ in range(2)
-    ]
-    bv_e, bd_e, bv_o, bd_o, dirs = pl.pallas_call(
-        kernel,
-        grid=grid,
-        out_shape=out_shape,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        scratch_shapes=scratch,
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary", "arbitrary"),
-        ),
-    )(dsy, n2y, dso, n2o, qstream, dstream)
-    return (bv_e, bd_e, bv_o, bd_o), (dirs if with_dirs else None)
-
-
-def stream_modes_lanes(outs, np_slots: int) -> Tuple[jax.Array, jax.Array]:
-    """(bv, bd) per-lane running argmax buffers, each (R*np_slots, P),
-    assembled from the four parity blocks; pair order row-major (pair
-    b = slot b % np_slots of row b // np_slots).  Feed to
-    nw_affine_modes.modes_reduce for the per-pair end cell."""
-    bv_e, bd_e, bv_o, bd_o = outs
-    idx = np.arange(np_slots)
-    even = jnp.asarray((idx % 2 == 0)[:, None, None])
-    j = idx // 2
-
-    def pick(e, o):
-        return jnp.where(even, jnp.take(e, j, axis=0), jnp.take(o, j, axis=0))
-
-    bv = pick(bv_e, bv_o)  # (NP, R, P)
-    bd = pick(bd_e, bd_o)
-    P = bv.shape[2]
-    return (
-        jnp.swapaxes(bv, 0, 1).reshape(-1, P),
-        jnp.swapaxes(bd, 0, 1).reshape(-1, P),
-    )
-
-
-# ---------------------------------------------------------------------------
 # Public entry
 # ---------------------------------------------------------------------------
-
-
-@functools.lru_cache(maxsize=64)
-def _jitted_stream_modes(
-    plan, scheme, wildcard, mode, with_dirs, bt, state_dtype=jnp.int32
-):
-    """Device-side stream prep + fill as ONE jitted dispatch (ships the
-    raw 1-byte/char padded sequences, not the 5x fatter int32 streams --
-    see nw_affine_stream._jitted_stream_prep_pallas)."""
-
-    def run(q_all, d_all, qlen, dlen):
-        ins = _device_stream_inputs(q_all, d_all, qlen, dlen, plan)
-        outs, dirs = gotoh_fill_stream_modes_pallas(
-            *ins,
-            plan=plan, scheme=scheme, wildcard=wildcard, mode=mode,
-            with_dirs=with_dirs, bt=bt, state_dtype=state_dtype,
-        )
-        bv, bd = stream_modes_lanes(outs, plan.np_slots)
-        # Reduce to the per-pair end cell on device: the host never needs
-        # the (B, P) buffers, and fetching them dominates the fill time.
-        return modes_reduce(bv, bd), dirs
-
-    return jax.jit(run)
 
 
 def nw_affine_stream_modes_batch(
@@ -482,15 +184,14 @@ def nw_affine_stream_modes_batch(
     scheme: ScoringScheme = ScoringScheme(),
     wildcard: bool = False,
     with_dirs: bool = True,
-    backend: str = "auto",
     np_slots: Optional[int] = None,
     chunk: int = 128,
-    bt: int = 8,
     state_dtype=jnp.int32,
 ) -> StreamModesResult:
     """Streamed batched semi-global/local Gotoh fill.  mode in
     ("semi", "local").  Use stream_modes_best() for the (score, x, y)
-    end cell per pair.
+    end cell per pair.  The lax.scan fill runs on every platform (a
+    mode of the CUDA streamed fill is ROADMAP work).
     state_dtype: dtype or "i32"/"i16"/"auto" (resolve_stream_state).
 
     Eager host-level entry point (it stages inputs with NumPy): the
@@ -514,33 +215,19 @@ def nw_affine_stream_modes_batch(
     qlen[:B] = np.asarray(query_len, np.int32)
     dlen[:B] = np.asarray(db_len, np.int32)
 
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "lax"
-
-    if backend == "pallas":
-        fn = _jitted_stream_modes(
-            plan, scheme, wildcard, mode, with_dirs, bt, state_dtype
-        )
-        (best, x, y), dirs = fn(
-            jnp.asarray(q_all), jnp.asarray(d_all),
-            jnp.asarray(qlen), jnp.asarray(dlen),
-        )
-    elif backend == "lax":
-        qstream, dstream, dsy, n2y, dso, n2o = build_stream_inputs(
-            q_all.astype(np.int32), d_all.astype(np.int32),
-            qlen, dlen, plan,
-        )
-        (bv_k, bd_k), dirs = gotoh_fill_stream_modes_lax(
-            jnp.asarray(qstream), jnp.asarray(dstream),
-            jnp.asarray(dsy[:NP, :, 0]), jnp.asarray(n2y[:NP, :, 0]),
-            plan, scheme, wildcard, mode, with_dirs,
-            state_dtype=state_dtype,
-        )
-        bv = jnp.swapaxes(bv_k, 0, 1).reshape(-1, plan.p)
-        bd = jnp.swapaxes(bd_k, 0, 1).reshape(-1, plan.p)
-        best, x, y = modes_reduce(bv, bd)
-    else:
-        raise ValueError(f"unknown backend {backend!r}")
+    qstream, dstream, dsums, n2s = build_stream_inputs(
+        q_all.astype(np.int32), d_all.astype(np.int32),
+        qlen, dlen, plan,
+    )
+    (bv_k, bd_k), dirs = gotoh_fill_stream_modes_lax(
+        jnp.asarray(qstream), jnp.asarray(dstream),
+        jnp.asarray(dsums), jnp.asarray(n2s),
+        plan, scheme, wildcard, mode, with_dirs,
+        state_dtype=state_dtype,
+    )
+    bv = jnp.swapaxes(bv_k, 0, 1).reshape(-1, plan.p)
+    bd = jnp.swapaxes(bd_k, 0, 1).reshape(-1, plan.p)
+    best, x, y = modes_reduce(bv, bd)
 
     best, x, y = jax.device_get((best, x, y))
     return StreamModesResult(

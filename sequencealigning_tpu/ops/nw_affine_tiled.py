@@ -1,8 +1,8 @@
 """Tiled affine-gap NW (Gotoh) fill for arbitrarily long pairs -- the
-framework's sequence-parallel axis on one chip.
+framework's sequence-parallel axis on one device.
 
-The streamed kernel (ops.nw_affine_stream) keeps the whole lane dimension
-(P ~ db length) in VMEM, which caps a pair at ~48k lanes at bt=8.  This
+The streamed fill (ops.nw_affine_stream) keeps the whole lane dimension
+(P ~ db length) in one row, which caps a pair at its MAX_LANES.  This
 module removes the ceiling: the DP matrix is split into tiles of W lanes
 along the db (x) axis, each tile is filled with the same anti-diagonal
 Gotoh sweep, and the only coupling between consecutive tiles is the
@@ -31,21 +31,17 @@ Score-only: per-pair M/I/D corner finals, captured where (x, y) ==
 a banded fill + band doubling until the banded score matches (Ukkonen-
 style verification; see models.gotoh).
 
-Two interchangeable tile fills share the single-step function:
-  * _tile_fill_lax    -- jax.lax.scan over steps (CPU tests).
-  * _tile_fill_pallas -- the TPU kernel (auto-interprets off-TPU).
+The tile fills (_tile_fill_lax, _tile_fill_folded_lax) are jax.lax.scan
+sweeps on every platform; a long-pair GPU kernel is ROADMAP R5.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from sequencealigning_tpu.config import NEG_INF, ScoringScheme
 from sequencealigning_tpu.io.encode import round_up as _round_up
@@ -154,149 +150,6 @@ def _tile_fill_lax(
 
 
 # ---------------------------------------------------------------------------
-# Pallas tile fill
-# ---------------------------------------------------------------------------
-
-
-def _tile_kernel(
-    # inputs
-    x0_ref, n1_ref, n2_ref, s2v_ref, qs_ref, hb1_ref, mb_ref, db_ref,
-    # outputs
-    fm_ref, fi_ref, fd_ref, brm_ref, brd_ref, brh_ref,
-    # scratch
-    H2, H1, M1, I1, D1, s1d,
-    *, chunk: int,
-    scheme: ScoringScheme, compat: bool, wildcard: bool,
-):
-    c = pl.program_id(1)
-    BT, W = s2v_ref.shape
-    col_iota = jax.lax.broadcasted_iota(jnp.int32, (BT, W), 1)
-    lane_0 = col_iota == 0
-    roll = lambda a: pltpu.roll(a, 1, axis=1)
-    x0 = x0_ref[0, 0]
-    c_m, c_i, c_d = _col0_vals(x0, col_iota, scheme, compat)
-    n1v = n1_ref[...]
-    n2v = n2_ref[...]
-    s2v = s2v_ref[...]
-    lcap = n2v - x0
-    gcap = lcap + n1v
-    gmin, gmax = jnp.min(gcap), jnp.max(gcap)
-
-    @pl.when(c == 0)
-    def _init():
-        neg = jnp.full((BT, W), NEG_INF, jnp.int32)
-        H2[...] = neg
-        H1[...] = neg
-        M1[...] = neg
-        I1[...] = neg
-        D1[...] = neg
-        s1d[...] = jnp.zeros((BT, W), jnp.int32)
-        zero = jnp.zeros((BT, W), jnp.int32)
-        fm_ref[...] = zero
-        fi_ref[...] = zero
-        fd_ref[...] = zero
-
-    lanec = jax.lax.broadcasted_iota(jnp.int32, (BT, chunk), 1)
-
-    def col(ref, i):
-        return jnp.sum(
-            jnp.where(lanec == i, ref[...], 0), axis=1, keepdims=True
-        )
-
-    def step_body(i, carry):
-        vH2, vH1, vM1, vI1, vD1, vs1d, bm, bd, bh = carry
-        g = c * chunk + i
-        M, I, D, H, vs1d = _tile_step(
-            vH2, vH1, vM1, vI1, vD1, vs1d,
-            col(qs_ref, i), col(hb1_ref, i), col(mb_ref, i), col(db_ref, i),
-            g, s2v, col_iota, lane_0, c_m, c_i, c_d,
-            scheme, wildcard, roll,
-        )
-
-        @pl.when(jnp.logical_and(g >= gmin, g <= gmax))
-        def _capture(M=M, I=I, D=D, g=g):
-            cap = jnp.logical_and(g == gcap, col_iota == lcap)
-            fm_ref[...] += jnp.where(cap, M, 0)
-            fi_ref[...] += jnp.where(cap, I, 0)
-            fd_ref[...] += jnp.where(cap, D, 0)
-
-        # Accumulate lane W-1's emissions into (BT, chunk) row buffers.
-        sel = lanec == i
-        bm = jnp.where(sel, M[:, -1:], bm)
-        bd = jnp.where(sel, D[:, -1:], bd)
-        bh = jnp.where(sel, H[:, -1:], bh)
-        return (vH1, H, M, I, D, vs1d, bm, bd, bh)
-
-    zeros_c = jnp.zeros((BT, chunk), jnp.int32)
-    carry0 = (
-        H2[...], H1[...], M1[...], I1[...], D1[...], s1d[...],
-        zeros_c, zeros_c, zeros_c,
-    )
-    carry = jax.lax.fori_loop(0, chunk, step_body, carry0)
-    H2[...], H1[...], M1[...], I1[...], D1[...], s1d[...] = carry[:6]
-    brm_ref[...] = carry[6]
-    brd_ref[...] = carry[7]
-    brh_ref[...] = carry[8]
-
-
-def _tile_fill_pallas(
-    db_tile, qs, hb1s, mbs, dbs, n1v, n2v, x0, ngc: int,
-    scheme: ScoringScheme, compat: bool, wildcard: bool,
-    chunk: int = 128, interpret: Optional[bool] = None, bt: int = 8,
-):
-    """Same contract as _tile_fill_lax, as a Pallas kernel."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    B, W = db_tile.shape
-    BT = bt if B % bt == 0 else (8 if B % 8 == 0 else B)
-    NB = B // BT
-    NC = ngc // chunk
-
-    grid = (NB, NC)
-    kernel = functools.partial(
-        _tile_kernel, chunk=chunk, scheme=scheme,
-        compat=compat, wildcard=wildcard,
-    )
-    bspec = lambda shp, imap: pl.BlockSpec(shp, imap, memory_space=pltpu.VMEM)
-    in_specs = [
-        pl.BlockSpec((1, 1), lambda b, c: (0, 0), memory_space=pltpu.SMEM),
-        bspec((BT, 1), lambda b, c: (b, 0)),
-        bspec((BT, 1), lambda b, c: (b, 0)),
-        bspec((BT, W), lambda b, c: (b, 0)),
-        bspec((BT, chunk), lambda b, c: (b, c)),
-        bspec((BT, chunk), lambda b, c: (b, c)),
-        bspec((BT, chunk), lambda b, c: (b, c)),
-        bspec((BT, chunk), lambda b, c: (b, c)),
-    ]
-    out_specs = [
-        bspec((BT, W), lambda b, c: (b, 0)),
-        bspec((BT, W), lambda b, c: (b, 0)),
-        bspec((BT, W), lambda b, c: (b, 0)),
-        bspec((BT, chunk), lambda b, c: (b, c)),
-        bspec((BT, chunk), lambda b, c: (b, c)),
-        bspec((BT, chunk), lambda b, c: (b, c)),
-    ]
-    out_shape = [jax.ShapeDtypeStruct((B, W), jnp.int32)] * 3 + [
-        jax.ShapeDtypeStruct((B, ngc), jnp.int32)
-    ] * 3
-    scratch = [pltpu.VMEM((BT, W), jnp.int32) for _ in range(6)]
-    x0_arr = jnp.asarray(x0, jnp.int32).reshape(1, 1)
-    fm, fi, fd, brm, brd, brh = pl.pallas_call(
-        kernel,
-        grid=grid,
-        out_shape=out_shape,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        scratch_shapes=scratch,
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-        ),
-    )(x0_arr, n1v, n2v, db_tile, qs, hb1s, mbs, dbs)
-    return fm, fi, fd, brm, brd, brh
-
-
-# ---------------------------------------------------------------------------
 # Tile orchestration (one jitted scan over tiles)
 # ---------------------------------------------------------------------------
 
@@ -323,9 +176,7 @@ def _boundary0(n1v, ngc: int, scheme: ScoringScheme, compat: bool):
 
 
 @functools.lru_cache(maxsize=32)
-def _jitted_tiled(w, ngc, scheme, compat, wildcard, backend, bt, chunk):
-    fill = _tile_fill_pallas if backend == "pallas" else _tile_fill_lax
-    kw = {"bt": bt, "chunk": chunk} if backend == "pallas" else {}
+def _jitted_tiled(w, ngc, scheme, compat, wildcard):
 
     def run(query, db_tiles, x0s, n1v, n2v):
         # query: (B, L1) int8; db_tiles: (T, B, W) int8; x0s: (T,) int32.
@@ -339,9 +190,9 @@ def _jitted_tiled(w, ngc, scheme, compat, wildcard, backend, bt, chunk):
         def tile_body(carry, xs):
             hb1, mb, db_b, fm, fi, fd = carry
             db_tile, x0 = xs
-            fm_t, fi_t, fd_t, brm, brd, brh = fill(
+            fm_t, fi_t, fd_t, brm, brd, brh = _tile_fill_lax(
                 db_tile.astype(jnp.int32), qs, hb1, mb, db_b, n1v, n2v,
-                x0, ngc, scheme, compat, wildcard, **kw
+                x0, ngc, scheme, compat, wildcard,
             )
             fm = fm + fm_t
             fi = fi + fi_t
@@ -373,17 +224,15 @@ def nw_affine_tiled_batch(
     compat: bool = True,
     wildcard: bool = False,
     tile_lanes: int = 4096,
-    backend: str = "auto",
-    bt: int = 8,
     chunk: int = 128,
 ) -> np.ndarray:
     """Exact Gotoh corner finals (B, 3) for pairs of ANY length.
 
     Score-only (no dirs): O(B * (tile_lanes + n1)) device memory.  Same
     finals contract as ops.nw_affine.nw_affine_batch(with_dirs=False).
+    The lax.scan fill runs on every platform.
+    chunk: the step axis is padded to a multiple of it.
     """
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "lax"
     B, L1 = query.shape
     _, L2 = db.shape
     W = _round_up(min(tile_lanes, max(L2, 128)), 128)
@@ -405,7 +254,7 @@ def nw_affine_tiled_batch(
     qlen[:B] = np.asarray(query_len, np.int32)
     dlen[:B] = np.asarray(db_len, np.int32)
 
-    fn = _jitted_tiled(W, ngc, scheme, compat, wildcard, backend, bt, chunk)
+    fn = _jitted_tiled(W, ngc, scheme, compat, wildcard)
     finals = fn(
         jnp.asarray(q), jnp.asarray(db_tiles), jnp.asarray(x0s),
         jnp.asarray(qlen)[:, None], jnp.asarray(dlen)[:, None],
@@ -431,15 +280,15 @@ def nw_affine_tiled_batch(
 # Sublane-folded small-batch tile fill
 # ---------------------------------------------------------------------------
 #
-# A few long pairs leave most of the 8 sublanes idle in the batched tile
-# sweep.  The folded variant splits the sublane axis into G = 8 // fold
+# A few long pairs leave most of the 8 rows idle in the batched tile
+# sweep.  The folded variant splits the 8-row axis into G = 8 // fold
 # groups of `fold` consecutive sublanes; group p holds pair p, with `fold`
 # CONSECUTIVE W-lane x-tiles of that pair on the group's sublanes.  One
 # kernel invocation sweeps a virtual fold*W-wide tile per pair: cell (x, y)
 # with x = x0 + (s % fold)*W + l lives at sublane s, lane l, and every
 # (s, l) position of an anti-diagonal step holds a distinct cell -- full
 # VPU occupancy at any B in 1..4 (fold = 8 at B=1 recovers the original
-# single-pair fold).  The only cross-sublane machinery is the x-1 neighbor
+# single-pair fold).  The only cross-row machinery is the x-1 neighbor
 # exchange across the sublane seam: lane 0 of sublane s reads lane W-1 of
 # sublane s-1 (one sublane roll + one static slice + select); the roll
 # also crosses group boundaries, but those cells are the per-group fold
@@ -517,7 +366,7 @@ def _tile_fill_folded_lax(
     p*fold..(p+1)*fold-1 holding pair p's fold*W db lanes; qs/hb1s/mbs/
     dbs: (8, NGC) per-step columns (rows equal within a group); n2c/n12c:
     (8, 128) per-sublane n2 / n1+n2 (lane 0 meaningful); glo/ghi: the
-    Pallas capture window (unused here -- the lax scan masks every step).
+    capture window (unused here -- the lax scan masks every step).
     Returns (fm, fi, fd (8, W), br_m, br_d, br_h (8, NGC) per-sublane
     last-lane emissions)."""
     del glo, ghi
@@ -560,169 +409,8 @@ def _tile_fill_folded_lax(
     return fm, fi, fd, brs[0], brs[1], brs[2]
 
 
-def _folded_kernel(
-    # inputs
-    x0_ref, glo_ref, ghi_ref, n2c_ref, n12c_ref, s2v_ref,
-    qs_ref, hb1_ref, mb_ref, db_ref,
-    # outputs
-    fm_ref, fi_ref, fd_ref, brm_ref, brd_ref, brh_ref,
-    # scratch
-    H2, H1, M1, I1, D1, qw,
-    *, chunk: int, fold: int,
-    scheme: ScoringScheme, compat: bool, wildcard: bool,
-):
-    c = pl.program_id(0)
-    S, W = s2v_ref.shape
-    lane_iota = jax.lax.broadcasted_iota(jnp.int32, (S, W), 1)
-    sub_iota = jax.lax.broadcasted_iota(jnp.int32, (S, W), 0)[:, :1]
-    sub_off = (sub_iota & (fold - 1)) * W
-    lane_0 = lane_iota == 0
-    s0l0 = jnp.logical_and(lane_0, sub_off == 0)
-    roll_l = lambda a: pltpu.roll(a, 1, axis=1)
-    roll_s = lambda a: pltpu.roll(a, 1, axis=0)
-    x0 = x0_ref[0, 0]
-    glo = glo_ref[0, 0]
-    ghi = ghi_ref[0, 0]
-    s2v = s2v_ref[...]
-    xv = x0 + sub_off + lane_iota
-    gcapc = n12c_ref[...][:, :1] - x0
-    capl = xv == n2c_ref[...][:, :1]
-
-    @pl.when(c == 0)
-    def _init():
-        negf = jnp.full((S, W), NEG_INF, jnp.int32)
-        H2[...] = negf
-        H1[...] = negf
-        M1[...] = negf
-        I1[...] = negf
-        D1[...] = negf
-        qw[...] = jnp.zeros((S, W), jnp.int32)
-        zero = jnp.zeros((S, W), jnp.int32)
-        fm_ref[...] = zero
-        fi_ref[...] = zero
-        fd_ref[...] = zero
-
-    lanec = jax.lax.broadcasted_iota(jnp.int32, (S, chunk), 1)
-
-    def col(ref, i):
-        return jnp.sum(
-            jnp.where(lanec == i, ref[...], 0), axis=1, keepdims=True
-        )
-
-    def step_body(i, carry):
-        vH2, vH1, vM1, vI1, vD1, vqw, bm, bd, bh = carry
-        g = c * chunk + i
-        M, I, D, H, vqw = _folded_step(
-            vH2, vH1, vM1, vI1, vD1, vqw,
-            col(qs_ref, i), col(hb1_ref, i), col(mb_ref, i), col(db_ref, i),
-            g, s2v, lane_iota, sub_off, s0l0, lane_0, x0,
-            scheme, compat, wildcard, roll_l, roll_s,
-        )
-
-        # Scalar window over the pairs' capture steps: zero-cost outside
-        # it, per-pair masked RMW inside (equal-length pairs -> 1 step).
-        @pl.when(jnp.logical_and(g >= glo, g <= ghi))
-        def _capture(M=M, I=I, D=D, g=g):
-            cap = jnp.logical_and(g == gcapc, capl)
-            fm_ref[...] += jnp.where(cap, M, 0)
-            fi_ref[...] += jnp.where(cap, I, 0)
-            fd_ref[...] += jnp.where(cap, D, 0)
-
-        # Last-lane column per sublane ((8,1) -- Mosaic cannot broadcast a
-        # (1,1) anchored off-origin); row 7 is the virtual tile edge and
-        # is selected by the wrapper.
-        sel = lanec == i
-        bm = jnp.where(sel, M[:, -1:], bm)
-        bd = jnp.where(sel, D[:, -1:], bd)
-        bh = jnp.where(sel, H[:, -1:], bh)
-        return (vH1, H, M, I, D, vqw, bm, bd, bh)
-
-    zeros_c = jnp.zeros((S, chunk), jnp.int32)
-    carry0 = (
-        H2[...], H1[...], M1[...], I1[...], D1[...], qw[...],
-        zeros_c, zeros_c, zeros_c,
-    )
-    carry = jax.lax.fori_loop(0, chunk, step_body, carry0)
-    H2[...], H1[...], M1[...], I1[...], D1[...], qw[...] = carry[:6]
-    brm_ref[...] = carry[6]
-    brd_ref[...] = carry[7]
-    brh_ref[...] = carry[8]
-
-
-def _tile_fill_folded_pallas(
-    db_tile, qs, hb1s, mbs, dbs, n2c, n12c, x0, glo, ghi, ngc: int,
-    fold: int, scheme: ScoringScheme, compat: bool, wildcard: bool,
-    chunk: int = 128, interpret: Optional[bool] = None,
-):
-    """Same contract as _tile_fill_folded_lax, as a Pallas kernel.  The
-    per-step boundary/char columns arrive as (8, chunk) blocks (rows equal
-    within a sublane group) so the in-kernel column extraction stays a
-    masked reduce; per-sublane n2 / n1+n2 ride (8, 128) VMEM blocks (lane
-    0 meaningful -- Mosaic tiles don't go narrower)."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    S, W = db_tile.shape
-    NC = ngc // chunk
-
-    grid = (NC,)
-    kernel = functools.partial(
-        _folded_kernel, chunk=chunk, fold=fold, scheme=scheme,
-        compat=compat, wildcard=wildcard,
-    )
-    bspec = lambda shp, imap: pl.BlockSpec(shp, imap, memory_space=pltpu.VMEM)
-    smem = lambda: pl.BlockSpec(
-        (1, 1), lambda c: (0, 0), memory_space=pltpu.SMEM
-    )
-    in_specs = [
-        smem(), smem(), smem(),
-        bspec((S, 128), lambda c: (0, 0)),
-        bspec((S, 128), lambda c: (0, 0)),
-        bspec((S, W), lambda c: (0, 0)),
-        bspec((S, chunk), lambda c: (0, c)),
-        bspec((S, chunk), lambda c: (0, c)),
-        bspec((S, chunk), lambda c: (0, c)),
-        bspec((S, chunk), lambda c: (0, c)),
-    ]
-    out_specs = [
-        bspec((S, W), lambda c: (0, 0)),
-        bspec((S, W), lambda c: (0, 0)),
-        bspec((S, W), lambda c: (0, 0)),
-        bspec((S, chunk), lambda c: (0, c)),
-        bspec((S, chunk), lambda c: (0, c)),
-        bspec((S, chunk), lambda c: (0, c)),
-    ]
-    out_shape = [jax.ShapeDtypeStruct((S, W), jnp.int32)] * 3 + [
-        jax.ShapeDtypeStruct((S, ngc), jnp.int32)
-    ] * 3
-    scratch = [pltpu.VMEM((S, W), jnp.int32) for _ in range(6)]
-    to11 = lambda v: jnp.asarray(v, jnp.int32).reshape(1, 1)
-    wide = lambda a: jnp.broadcast_to(a, (S, 128))
-    fm, fi, fd, brm, brd, brh = pl.pallas_call(
-        kernel,
-        grid=grid,
-        out_shape=out_shape,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        scratch_shapes=scratch,
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
-    )(
-        to11(x0), to11(glo), to11(ghi), wide(n2c[:, :1]), wide(n12c[:, :1]),
-        db_tile, qs, hb1s, mbs, dbs,
-    )
-    return fm, fi, fd, brm, brd, brh
-
-
 @functools.lru_cache(maxsize=16)
-def _jitted_tiled_folded(w, ngc, fold, scheme, compat, wildcard, backend,
-                         chunk):
-    fill = (
-        _tile_fill_folded_pallas if backend == "pallas"
-        else _tile_fill_folded_lax
-    )
-    kw = {"chunk": chunk} if backend == "pallas" else {}
+def _jitted_tiled_folded(w, ngc, fold, scheme, compat, wildcard):
     wv = fold * w
 
     def run(query, db_tiles, x0s, n1v, n2v):
@@ -744,10 +432,10 @@ def _jitted_tiled_folded(w, ngc, fold, scheme, compat, wildcard, backend,
         def tile_body(carry, xs):
             hb1, mb, db_b, fm, fi, fd = carry
             db_tile, x0 = xs
-            fm_t, fi_t, fd_t, brm, brd, brh = fill(
+            fm_t, fi_t, fd_t, brm, brd, brh = _tile_fill_folded_lax(
                 db_tile.astype(jnp.int32), qs, hb1, mb, db_b, n2c, n12c,
                 x0, glo_all - x0, ghi_all - x0, ngc, fold,
-                scheme, compat, wildcard, **kw
+                scheme, compat, wildcard,
             )
             fm = fm + fm_t
             fi = fi + fi_t
@@ -782,13 +470,12 @@ def nw_affine_tiled_fold_batch(
     compat: bool = True,
     wildcard: bool = False,
     tile_lanes: int = 8192,
-    backend: str = "auto",
     chunk: int = 128,
 ) -> np.ndarray:
     """Exact Gotoh corner finals (B, 3) for a SMALL batch (B <= 4) of long
-    pairs, each pair folded over 8 // ceil_pow2(B) consecutive sublanes --
-    full VPU occupancy in ONE dispatch where the plain batched sweep would
-    idle most sublane rows.  B > 4 falls through to the batched sweep.
+    pairs, each pair folded over 8 // ceil_pow2(B) consecutive rows --
+    all 8 rows busy in ONE dispatch where the plain batched sweep would
+    idle most of them.  B > 4 falls through to the batched sweep.
 
     Every pair is padded to the longest pair's virtual tile grid, so the
     single dispatch computes G * max(cells) work: batch similar-length
@@ -798,10 +485,8 @@ def nw_affine_tiled_fold_batch(
     if B > 4:
         return nw_affine_tiled_batch(
             query, db, query_len, db_len, scheme=scheme, compat=compat,
-            wildcard=wildcard, backend=backend, chunk=chunk,
+            wildcard=wildcard, chunk=chunk,
         )
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "lax"
     G = 1 if B == 1 else (2 if B == 2 else 4)
     fold = 8 // G
     W = _round_up(min(tile_lanes, max(-(-max(L2, 1) // fold), 128)), 128)
@@ -825,9 +510,7 @@ def nw_affine_tiled_fold_batch(
     qlen[:B] = np.asarray(query_len, np.int32)
     dlen[:B] = np.asarray(db_len, np.int32)
 
-    fn = _jitted_tiled_folded(
-        W, ngc, fold, scheme, compat, wildcard, backend, chunk
-    )
+    fn = _jitted_tiled_folded(W, ngc, fold, scheme, compat, wildcard)
     finals = fn(
         jnp.asarray(q), jnp.asarray(db_tiles), jnp.asarray(x0s),
         jnp.asarray(qlen)[:, None], jnp.asarray(dlen)[:, None],
@@ -856,12 +539,11 @@ def nw_affine_tiled_single(
     compat: bool = True,
     wildcard: bool = False,
     tile_lanes: int = 8192,
-    backend: str = "auto",
     chunk: int = 128,
 ) -> np.ndarray:
     """Exact Gotoh corner finals (3,) for ONE pair of any length, with the
-    db axis folded over all 8 sublanes (full VPU occupancy -- the batched
-    tiled fill leaves 7/8 sublanes idle at B=1).  The B=1 case of
+    db axis folded over all 8 rows (the batched tiled fill leaves 7/8 rows
+    idle at B=1).  The B=1 case of
     nw_affine_tiled_fold_batch."""
     from sequencealigning_tpu.io.encode import encode_seq
 
@@ -874,8 +556,7 @@ def nw_affine_tiled_single(
         d[0] = encode_seq(db)
     return nw_affine_tiled_fold_batch(
         q, d, np.array([n1]), np.array([n2]), scheme=scheme, compat=compat,
-        wildcard=wildcard, tile_lanes=tile_lanes, backend=backend,
-        chunk=chunk,
+        wildcard=wildcard, tile_lanes=tile_lanes, chunk=chunk,
     )[0]
 
 

@@ -45,26 +45,13 @@ from typing import NamedTuple, Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
+from sequencealigning_tpu import backend as _backend
 from sequencealigning_tpu.config import NEG_INF, ScoringScheme
 from sequencealigning_tpu.io.encode import round_up as _round_up
 from sequencealigning_tpu.ops import dirbits
 
 NEGBIG = -(2 ** 24)  # band-mask -inf (same convention as ops.nw_banded)
-
-# fori-loop iterations per kernel body (multiple of 4, divides chunk).
-# Each loop iteration carries a fixed state spill/reload cost (PERF.md);
-# sweep-tuned per dirs mode (benchmarks/diag_sweep.py, 2026-08-18:
-# fast4 30.1->32.8 GCUPS at unroll 8, full 27.9->29.5 at 16, score ~flat
-# with 8 best; unroll 32 regresses every mode).
-_DEFAULT_UNROLL = 4  # legacy fallback; see _default_unroll()
-
-
-def _default_unroll(want_dirs) -> int:
-    return 16 if want_dirs == "full" else 8
-
 
 def _norm_dirs(want_dirs):
     """Normalize a dirs mode to False | "fast4" | "full" (True means the
@@ -343,295 +330,71 @@ def _banded_diag_lax(
 
 
 # ---------------------------------------------------------------------------
-# Pallas kernel
+# CUDA kernel (cuda/fills.cu, banded_fill_kernel)
 # ---------------------------------------------------------------------------
 
+def banded_lanes_per_thread(L: int) -> int:
+    """Lanes each CUDA thread holds: 4 up to 4096 lanes (1024 threads),
+    then 16.  At config 4's 256 lanes, 4 lanes a thread (two warps per
+    pair) beat 8 (one warp, no block barrier) and 16 (PERF.md)."""
+    return 4 if L <= 4096 else 16
 
-def _diag_kernel(
-    n1v_ref, n2v_ref, s1w0_ref, s2w0_ref, c1s_ref, c2s_ref,
-    fm_ref, fi_ref, fd_ref, dirs_ref,
-    M1, I1, D1, H1, H2, s1w, s2w,
-    *, k_lo_even: int, L: int, chunk: int, k_hi_eff: int,
+
+def banded_diag_fill_cuda(
+    query, db, n1v, n2v,
+    k_lo_even: int, L: int, n_iters: int, k_hi_eff: int,
     scheme: ScoringScheme, compat: bool, wildcard: bool, want_dirs,
-    unroll: int = 4, model: str = "ref",
+    model: str = "ref", lpt: Optional[int] = None,
 ):
-    """Grid (NB, NC): batch tiles x iteration chunks (1 iteration = 2
-    wavefronts).  The fori body unrolls `unroll` iterations (multiple of
-    4; each 4-iteration quad = 8 wavefronts = exactly one packed fast4
-    dirs word, two full-mode words, with static shift patterns).  Each
-    fori iteration carries a fixed state spill/reload cost (PERF.md), so
-    unrolling several quads per iteration amortizes it."""
-    c = pl.program_id(1)
-    he = k_lo_even // 2
-    BT = M1.shape[0]
-    lane = jax.lax.broadcasted_iota(jnp.int32, (BT, L), 1)
-    n1v = n1v_ref[...]
-    n2v = n2v_ref[...]
-    neg = jnp.full((BT, L), NEGBIG, jnp.int32)
-
-    @pl.when(c == 0)
-    def _init():
-        m0 = jnp.where(lane == -he, 0, NEGBIG)
-        M1[...] = m0
-        I1[...] = neg
-        D1[...] = neg
-        H1[...] = m0
-        H2[...] = neg
-        s1w[...] = s1w0_ref[...]
-        s2w[...] = s2w0_ref[...]
-        fm_ref[...] = jnp.zeros_like(fm_ref)
-        fi_ref[...] = jnp.zeros_like(fi_ref)
-        fd_ref[...] = jnp.zeros_like(fd_ref)
-
-    corner_a = n1v + n2v
-    a_lo = jnp.min(corner_a)
-    a_hi = jnp.max(corner_a)
-    roll = lambda v, s: pltpu.roll(v, s % L, axis=1)
-    cchunk = c1s_ref.shape[1]  # input block width (>= chunk, 128-aligned)
-    lanec = jax.lax.broadcasted_iota(jnp.int32, (BT, cchunk), 1)
-    off0 = c * chunk - (c * chunk // cchunk) * cchunk
-    # One masked lane-reduce per iteration instead of two (Mosaic has no
-    # unaligned lane-dim dynamic_slice): c1/c2 packed into one int32 per
-    # lane, hoisted out of the loop.  The -1 padding sentinel becomes 255
-    # after the 8-bit unpack -- equivalent against 4-bit char codes under
-    # both == and the wildcard & (neither ever matches a real code).
-    cc_pack = (c1s_ref[...] & 0xFF) | ((c2s_ref[...] & 0xFF) << 8)
-
-    def col_qd(i):
-        v = jnp.sum(
-            jnp.where(lanec == off0 + i, cc_pack, 0), axis=1, keepdims=True
-        )
-        return v & 0xFF, (v >> 8) & 0xFF
-
-    def capture_fn(a, M, I, D):
-        q0 = (a - (a & 1)) // 2 - he
-        xv = q0 - lane
-        yv = a - xv
-        hit = jnp.logical_and(xv == n2v, yv == n1v)
-        fm_ref[...] += jnp.where(hit, M, 0)
-        fi_ref[...] += jnp.where(hit, I, 0)
-        fd_ref[...] += jnp.where(hit, D, 0)
-
-    UN = unroll
-    assert UN % 4 == 0 and chunk % UN == 0, (UN, chunk)
-
-    def make_quad(boundary: bool):
-        def quad(j, _):
-            # Each 4-iteration quad = wavefronts a in [8q+1, 8q+8]: one
-            # packed dirs word in fast4 (8 x 4 bits), two in full
-            # (4 x 8 bits); UN // 4 quads per fori iteration.
-            wreg = jnp.zeros((BT, L), jnp.uint32)
-            wreg2 = jnp.zeros((BT, L), jnp.uint32)
-            st = (M1[...], I1[...], D1[...], H1[...], H2[...],
-                  s1w[...], s2w[...])
-            for ri in range(UN):
-                r = ri % 4
-                if r == 0:
-                    wreg = jnp.zeros((BT, L), jnp.uint32)
-                    wreg2 = jnp.zeros((BT, L), jnp.uint32)
-                Mp, Ip, Dp, Hp, Hpp, s1c, s2c = st
-                i = j * UN + ri
-                g = c * chunk + i
-                c1, c2 = col_qd(i)
-                a1 = 2 * g + 1
-                M, I, D, H, s1c, s2c, code1 = _diag_step(
-                    1, a1, Mp, Ip, Dp, Hpp, Hp, s1c, s2c, c1, None,
-                    lane, n1v, n2v, he, L,
-                    (k_hi_eff - k_lo_even - 1) // 2,
-                    scheme, compat, wildcard,
-                    want_dirs, roll, boundary=boundary, model=model,
-                )
-
-                @pl.when(jnp.logical_and(a1 >= a_lo, a1 <= a_hi))
-                def _():
-                    capture_fn(a1, M, I, D)
-
-                a2 = 2 * g + 2
-                M2_, I2_, D2_, H2_, s1c, s2c, code2 = _diag_step(
-                    0, a2, M, I, D, Hp, H, s1c, s2c, None, c2,
-                    lane, n1v, n2v, he, L,
-                    (k_hi_eff - k_lo_even) // 2,
-                    scheme, compat, wildcard,
-                    want_dirs, roll, boundary=boundary, model=model,
-                )
-
-                @pl.when(jnp.logical_and(a2 >= a_lo, a2 <= a_hi))
-                def _():
-                    capture_fn(a2, M2_, I2_, D2_)
-
-                if want_dirs:
-                    # aidx = a-1: a1 -> 8j'+2r, a2 -> 8j'+2r+1 (static
-                    # shifts; full mode splits the 8 codes over 2 words).
-                    c1u = code1.astype(jnp.uint32)
-                    c2u = code2.astype(jnp.uint32)
-                    if want_dirs == "fast4":
-                        wreg |= c1u << jnp.uint32(4 * (2 * r))
-                        wreg |= c2u << jnp.uint32(4 * (2 * r + 1))
-                    elif r < 2:
-                        wreg |= (c1u << jnp.uint32(8 * (2 * r))) | (
-                            c2u << jnp.uint32(8 * (2 * r + 1))
-                        )
-                    else:
-                        wreg2 |= (c1u << jnp.uint32(8 * (2 * r - 4))) | (
-                            c2u << jnp.uint32(8 * (2 * r - 3))
-                        )
-                st = (M2_, I2_, D2_, H2_, H, s1c, s2c)
-                if want_dirs and r == 3:
-                    wq = j * (UN // 4) + ri // 4
-                    if want_dirs == "fast4":
-                        dirs_ref[pl.ds(wq, 1), :, :] = wreg[None]
-                    else:
-                        dirs_ref[pl.ds(2 * wq, 1), :, :] = wreg[None]
-                        dirs_ref[pl.ds(2 * wq + 1, 1), :, :] = wreg2[None]
-            (M1[...], I1[...], D1[...], H1[...], H2[...], s1w[...],
-             s2w[...]) = st
-            return 0
-
-        return quad
-
-    # Boundary phase: wavefronts that can contain x=0 / y=0 cells or
-    # lanes left of the origin.  Confined to the first NBND chunks; the
-    # steady-state loop runs the slimmer step (no boundary selects).
-    a_bnd = max(2 * L + k_lo_even - 1, 2 - k_lo_even)
-    nbnd = max(1, -(-(a_bnd // 2 + 1) // chunk))
-
-    @pl.when(c < nbnd)
-    def _boundary_chunks():
-        jax.lax.fori_loop(0, chunk // UN, make_quad(True), 0)
-
-    @pl.when(c >= nbnd)
-    def _steady_chunks():
-        jax.lax.fori_loop(0, chunk // UN, make_quad(False), 0)
-
-
-def banded_diag_fill_pallas(
-    s1w0, s2w0, c1s, c2s, n1v, n2v,
-    k_lo_even: int, L: int, k_hi_eff: int,
-    scheme: ScoringScheme, compat: bool, wildcard: bool, want_dirs,
-    chunk: int = 128, bt: int = 8, interpret: Optional[bool] = None,
-    unroll: int = 4, model: str = "ref",
-):
-    """Invoke the anti-diagonal kernel.  B multiple of 8; c1s/c2s (B, Np)
-    with Np a multiple of `chunk` (which is a multiple of 4)."""
+    """The CUDA banded fill, bit-identical to _banded_diag_lax: query/db
+    (B, L1|L2) char codes, n1v/n2v (B,) or (B, 1) true lengths.  Returns
+    ((B, 3) finals, dirs (Aw, B, L) uint32 or None)."""
     want_dirs = _norm_dirs(want_dirs)
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    B = s1w0.shape[0]
-    BT = bt if B % bt == 0 else (8 if B % 8 == 0 else B)
-    NB = B // BT
-    n_iters = c1s.shape[1]
-    NC = n_iters // chunk
+    _backend.engine("banded_diag", "cuda", L)  # raises past the lane limit
+    if _backend.platform() == "gpu":
+        from sequencealigning_tpu import cuda
 
-    grid = (NB, NC)
-    kernel = functools.partial(
-        _diag_kernel, k_lo_even=k_lo_even, L=L, chunk=chunk,
-        k_hi_eff=k_hi_eff,
-        scheme=scheme, compat=compat, wildcard=wildcard, want_dirs=want_dirs,
-        unroll=unroll, model=model,
+        cuda.ensure_registered()
+    B = query.shape[0]
+    mode = {False: 0, "fast4": 1, "full": 2}[want_dirs]
+    upack = _upack(want_dirs)
+    aw = -(-2 * n_iters // upack)
+    if lpt is None:
+        lpt = banded_lanes_per_thread(L)
+    fin, dirs = jax.ffi.ffi_call(
+        "seqalign_banded_fill",
+        (
+            jax.ShapeDtypeStruct((B, 3), jnp.int32),
+            jax.ShapeDtypeStruct((aw, B, L) if mode else (1,), jnp.uint32),
+        ),
+    )(
+        query.astype(jnp.int8), db.astype(jnp.int8),
+        n1v.reshape(B).astype(jnp.int32), n2v.reshape(B).astype(jnp.int32),
+        lanes=np.int32(L), n_iters=np.int32(n_iters),
+        k_lo_even=np.int32(k_lo_even), k_hi_eff=np.int32(k_hi_eff),
+        aw=np.int32(aw), dirs_mode=np.int32(mode),
+        compat=np.int32(compat), wildcard=np.int32(wildcard),
+        std_model=np.int32(model == "std"), lpt=np.int32(lpt),
+        match=np.int32(scheme.match_), mismatch=np.int32(scheme.mismatch),
+        gap_open=np.int32(scheme.gap_open),
+        gap_extend=np.int32(scheme.gap_extend),
     )
-    bspec = lambda shp, imap: pl.BlockSpec(shp, imap, memory_space=pltpu.VMEM)
-    cchunk = max(chunk, 128)
-    in_specs = [
-        bspec((BT, 1), lambda b, c: (b, 0)),
-        bspec((BT, 1), lambda b, c: (b, 0)),
-        bspec((BT, L), lambda b, c: (b, 0)),
-        bspec((BT, L), lambda b, c: (b, 0)),
-        bspec((BT, cchunk), lambda b, c: (b, (c * chunk) // cchunk)),
-        bspec((BT, cchunk), lambda b, c: (b, (c * chunk) // cchunk)),
-    ]
-    upack = _upack(want_dirs)  # cells per dirs word
-    wpc = (2 * chunk) // upack  # dirs words per chunk
-    out_specs = [
-        bspec((BT, L), lambda b, c: (b, 0)),
-        bspec((BT, L), lambda b, c: (b, 0)),
-        bspec((BT, L), lambda b, c: (b, 0)),
-        bspec(
-            (wpc if want_dirs else 1, BT, L),
-            (lambda b, c: (c, b, 0)) if want_dirs else (lambda b, c: (0, b, 0)),
-        ),
-    ]
-    out_shape = [
-        jax.ShapeDtypeStruct((B, L), jnp.int32),
-        jax.ShapeDtypeStruct((B, L), jnp.int32),
-        jax.ShapeDtypeStruct((B, L), jnp.int32),
-        jax.ShapeDtypeStruct(
-            (NC * wpc if want_dirs else 1, B, L), jnp.uint32
-        ),
-    ]
-    scratch = [pltpu.VMEM((BT, L), jnp.int32) for _ in range(7)]
-    fm, fi, fd, dirs = pl.pallas_call(
-        kernel,
-        grid=grid,
-        out_shape=out_shape,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        scratch_shapes=scratch,
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-        ),
-    )(n1v, n2v, s1w0, s2w0, c1s, c2s)
-    finals = jnp.stack([fm.sum(1), fi.sum(1), fd.sum(1)], axis=1)
-    return finals, (dirs if want_dirs else None)
+    return fin, (dirs if mode else None)
 
 
 @functools.lru_cache(maxsize=64)
-def _jitted_diag(backend, k_lo_even, L, n_iters, k_hi_eff, scheme,
-                 compat, wildcard, want_dirs, bt, chunk, unroll=4,
-                 model="ref"):
-    """One jitted dispatch per configuration (stream prep fused with the
-    fill; see nw_banded._jitted_banded for why)."""
-    if want_dirs is True:  # legacy bool callers mean the full layout
-        want_dirs = "full"
+def _jitted_diag(engine, k_lo_even, L, n_iters, k_hi_eff, scheme,
+                 compat, wildcard, want_dirs, model="ref"):
+    """One jitted dispatch per configuration."""
 
     def run(query, db, n1v, n2v):
-        he = k_lo_even // 2
-        q32 = query.astype(jnp.int32)
-        d32 = db.astype(jnp.int32)
-        if backend == "pallas":
-            _, s1w0, s2w0, _, _ = _init_state(q32, d32, he, L)
-            c1s, c2s = _entering_streams(q32, d32, he, L, n_iters)
-            return banded_diag_fill_pallas(
-                s1w0, s2w0, c1s, c2s, n1v, n2v, k_lo_even, L, k_hi_eff,
-                scheme, compat, wildcard, want_dirs, chunk=chunk, bt=bt,
-                unroll=unroll, model=model,
-            )
-        return _banded_diag_lax(
+        fill = banded_diag_fill_cuda if engine == "cuda" else _banded_diag_lax
+        return fill(
             query, db, n1v, n2v, k_lo_even, L, n_iters, k_hi_eff,
             scheme, compat, wildcard, want_dirs, model=model,
         )
 
     return jax.jit(run)
-
-
-def _pick_tile(B: int, L: int, want_dirs: bool):
-    """(bt, chunk): widest batch tile within the VMEM budget.  The row
-    kernel's empirical ~11 MB model is kept as the general gate; the diag
-    kernel's smaller input blocks leave headroom, and (bt=256, chunk=64)
-    with dirs is measured to compile and run ~4% faster than (128, 128)
-    at L=256, so dirs mode tries it first under a relaxed 14 MB gate."""
-    budget = 11 * 2 ** 20
-
-    upack = _upack(want_dirs)
-
-    def fits(bt, chunk, cap):
-        dirs_blk = ((2 * chunk) // upack) * bt * L * 4 if want_dirs else 0
-        state = 7 * bt * L * 4
-        outs = 3 * bt * L * 4
-        ins = 2 * bt * max(chunk, 128) * 4 + 2 * bt * L * 4
-        return 2 * dirs_blk + state + 2 * outs + ins <= cap
-
-    best = (8 if B % 8 == 0 else B, 128)
-    if want_dirs and B % 256 == 0 and fits(256, 64, 14 * 2 ** 20):
-        return 256, 64
-    bts = (256, 128, 64, 32, 16, 8) if not want_dirs else (128, 64, 32, 16, 8)
-    for bt in bts:
-        if B % bt:
-            continue
-        for chunk in (128, 64):
-            if fits(bt, chunk, budget):
-                return bt, chunk
-    return best
 
 
 def nw_banded_diag_batch(
@@ -645,13 +408,12 @@ def nw_banded_diag_batch(
     wildcard: bool = False,
     with_dirs=False,
     backend: str = "auto",
-    bt: Optional[int] = None,
-    unroll: Optional[int] = None,
     model: str = "ref",
 ) -> BandedDiagResult:
     """Anti-diagonal banded Gotoh fill.  Same band semantics and score
     contract as ops.nw_banded.nw_banded_batch; with_dirs in (False,
-    "fast4", "full"/True).
+    "fast4", "full"/True).  backend: "auto" (the platform's engine for
+    this band width, sequencealigning_tpu.backend), "lax" or "cuda".
 
     model="std" switches the gap-open source from the M plane to
     H = max(M, I, D) -- the standard gap-affine model (what WFA's merged
@@ -687,51 +449,22 @@ def nw_banded_diag_batch(
     k_hi_eff = k_lo + _round_up(k_hi - k_lo + 1, 128) - 1
     if k_lo_even + 2 * L - 1 < k_hi_eff:
         L += 128
-    B, L1 = query.shape
+    _, L1 = query.shape
     _, L2 = db.shape
     want_dirs = with_dirs if with_dirs in ("fast4", "full") else False
-
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "lax"
-
-    n1v = jnp.asarray(qlen, jnp.int32)[:, None]
-    n2v = jnp.asarray(dlen, jnp.int32)[:, None]
-
-    n_need = (L1 + L2 + 1) // 2 + 1
-    if backend == "pallas":
-        bt_auto, chunk = _pick_tile(
-            B if B % 8 == 0 else _round_up(B, 8), L, want_dirs
-        )
-        if bt is None:
-            bt = bt_auto
-        Bp = _round_up(max(B, 8), 8)
-        if Bp != B:
-            pad = ((0, Bp - B), (0, 0))
-            query = np.pad(np.asarray(query), pad)
-            db = np.pad(np.asarray(db), pad)
-            n1v = jnp.pad(n1v, ((0, Bp - B), (0, 0)), constant_values=1)
-            n2v = jnp.pad(n2v, ((0, Bp - B), (0, 0)), constant_values=1)
-        n_iters = _round_up(n_need, chunk)
-    elif backend == "lax":
-        bt, chunk = 8, 128
-        n_iters = n_need
-    else:
-        raise ValueError(f"unknown backend {backend!r}")
+    engine = _backend.engine("banded_diag", backend, L)
+    n_iters = (L1 + L2 + 1) // 2 + 1
 
     fn = _jitted_diag(
-        backend, k_lo_even, L, n_iters, k_hi_eff, scheme, compat,
-        wildcard, want_dirs, bt, chunk,
-        unroll if unroll is not None else _default_unroll(want_dirs),
-        model=model,
+        engine, k_lo_even, L, n_iters, k_hi_eff, scheme, compat,
+        wildcard, want_dirs, model=model,
     )
     finals, dirs = fn(
         jnp.asarray(np.asarray(query, np.int8)),
         jnp.asarray(np.asarray(db, np.int8)),
-        n1v, n2v,
+        jnp.asarray(qlen, jnp.int32)[:, None],
+        jnp.asarray(dlen, jnp.int32)[:, None],
     )
-    finals = finals[:B]
-    if dirs is not None and dirs.shape[1] != B:
-        dirs = dirs[:, :B]
     return BandedDiagResult(
         finals=finals, dirs=dirs, k_lo_even=k_lo_even, k_lo=k_lo
     )

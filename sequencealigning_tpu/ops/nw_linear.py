@@ -1,9 +1,9 @@
 """Batched linear/gap-state Needleman-Wunsch fill (anti-diagonal, JAX).
 
-TPU-native re-design of the reference's dead linear module
+Batched re-design of the reference's dead linear module
 (src/needleman_wunsch.rs, revived as Algo.NW_LINEAR): single score plane +
 per-cell gap flag, swept along anti-diagonals exactly like ops.nw_affine
-(lanes = db axis, sublanes = batch).  Supports the reference's global mode
+(lanes = db axis, rows = batch).  Supports the reference's global mode
 (with its double-initialized origin, compat) and its Smith-Waterman-style
 local mode (negative cells keep score 0 with cleared paths and traceback
 starts from every argmax cell, needleman_wunsch.rs:88-90, 106-116).

@@ -1,9 +1,9 @@
 """Host-side traceback from packed direction words.
 
-The TPU kernel emits one byte of direction bits per DP cell (ops.dirbits);
+The fills emit one byte of direction bits per DP cell (ops.dirbits);
 traceback is O(n+m) pointer-chasing per alignment -- inherently sequential
 and data-dependent, so it runs on the host (SURVEY.md §7 "hard parts"),
-reading the packed words the fill streamed to HBM.
+reading the packed words the fill wrote to device memory.
 
 The walk replicates the reference's LIFO co-optimal enumeration
 (needleman_wunsch_affine.rs:242-334) exactly, like ops.oracle_gotoh's

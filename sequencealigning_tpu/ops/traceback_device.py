@@ -40,6 +40,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
+from sequencealigning_tpu import backend as _backend
+
 # Plane encoding inside the walk (matches the fast4 code values where
 # applicable): 0 = M, 1 = I, 2 = D, 3 = PENDING (plane comes from the
 # next step's gathered nibble -- only ever set after a diagonal move).
@@ -202,8 +204,8 @@ def _walk_banded_diag_msub(
     backend's compile time explodes with inlined plane-steps per scan
     body -- single-device CPU handles 8 (1.2 s) but hangs at 12, and
     the 8-virtual-device test env hangs at 4 (2 compiles in 1.0 s).
-    The TPU backend compiles 4x2 and 8x1 in ~2 s.  Callers pick
-    (substeps, unroll) per backend: (4, 2) on TPU, (2, 1) on CPU."""
+    Callers pick (substeps, unroll) per platform through
+    sequencealigning_tpu.backend.banded_walk_setting."""
     W, _, L = dirs.shape
 
     def step(carry):
@@ -348,10 +350,8 @@ def rle_pack_ops(packed, cap: int = RLE_CAP):
 
     Formulation: run boundaries are compacted with lax.top_k (the cap
     smallest boundary positions per row), then ONE cap-element gather
-    per pair reads the run values.  The round-4 .at[].min/max scatter
-    over the full (B, T) matrix measured 194-282 ms/batch on a v5e at
-    the production shape -- top_k is 6-7.5x cheaper with identical
-    outputs (benchmarks/rle_probe.py).
+    per pair reads the run values (a scatter over the full (B, T)
+    matrix gives identical outputs but touches every step).
     """
     B, W = packed.shape
     T = W * 16
@@ -746,17 +746,15 @@ def assemble_modes_alignments(
 def use_device_walk(config) -> bool:
     """Shared fast4-traceback routing (config.traceback): walk on device
     -- fetching 2-bit op codes instead of the dirs tensor -- when "auto"
-    and the fill ran on a TPU; "device"/"host" force."""
+    and the fill ran on an accelerator; "device"/"host" force."""
     choice = getattr(config, "traceback", "auto")
     if choice == "device":
         return True
     if choice == "host":
         return False
-    # Any accelerator backend: the walk is plain XLA gather/scan, and on
-    # a device the dirs fetch it replaces is the expensive side.  (Keying
-    # on != "cpu" rather than == "tpu" keeps renamed/wrapped TPU platforms
-    # and GPUs on the device route.)
-    return jax.default_backend() != "cpu"
+    # On an accelerator the walk is plain XLA gather/scan, and the dirs
+    # fetch it replaces is the expensive side.
+    return _backend.platform() != "cpu"
 
 
 def banded_diag_device_tbs(
@@ -813,13 +811,16 @@ def banded_diag_align_device(
     unroll: int = 8,
     pair_idx: Optional[np.ndarray] = None,
     std: bool = False,
+    walk_setting: Optional[Tuple[int, int]] = None,
 ) -> Tuple[List[Optional[Tuple[str, str]]], np.ndarray]:
     """Device walk over an ops.nw_banded_diag fast4 dirs tensor
     ((Aw, B, L) uint32 wavefront-packed).  Returns (alignments, scores);
     None where the walk failed validation (e.g. the optimum escaped the
     band -- same signal the host walker's rescoring gate gives).
     pair_idx: dirs batch slot per sequence (default 0..B-1); pass a
-    subset to walk only some slots (the band-doubling long-pair route)."""
+    subset to walk only some slots (the band-doubling long-pair route).
+    walk_setting: (substeps, unroll) of the walk, default the platform's
+    (backend.banded_walk_setting)."""
     B = len(seqs1)
     n1s = np.asarray([len(s) for s in seqs1], np.int32)
     n2s = np.asarray([len(s) for s in seqs2], np.int32)
@@ -827,19 +828,15 @@ def banded_diag_align_device(
         pair_idx = np.arange(B, dtype=np.int32)
     finals = np.asarray(finals)[np.asarray(pair_idx)]
     t_steps = int((n1s + n2s).max()) if B else 1
-    # Multi-op-per-gather walk (r5): the scan is per-step LATENCY bound,
-    # and in this layout consecutive M ops share the gathered word, so
-    # consuming up to 4 ops per gather halves the dominant walk time on
-    # high-identity pairs (110 -> 54 ms at 1024 x 5 kb, PERF.md).  The
-    # emitted stream interleaves zeros for frozen sub-steps; compact
-    # before decoding.  CPU keeps substeps * unroll <= 2: the CPU
-    # backend's compile time explodes past ~3 inlined plane-steps per
-    # scan body under the 8-virtual-device test env (the msub docstring
-    # records the limits) -- the smaller factor still exercises the
-    # same freeze/compaction mechanism in tests.
-    substeps, msub_unroll = (
-        (4, 2) if jax.default_backend() == "tpu" else (2, 1)
-    )
+    # Multi-op-per-gather walk: the scan is per-step LATENCY bound, and
+    # in this layout consecutive M ops share the gathered word, so
+    # consuming up to 4 ops per gather shortens the walk on
+    # high-identity pairs.  The emitted stream interleaves zeros for
+    # frozen sub-steps; compact before decoding.  The (substeps, unroll)
+    # choice is per platform (backend.banded_walk_setting; the CPU's
+    # smaller factor still exercises the same freeze/compaction
+    # mechanism in tests).
+    substeps, msub_unroll = walk_setting or _backend.banded_walk_setting()
     (xf, yf), packed, n_used = _walk_banded_diag_msub(
         dirs,
         jnp.asarray(n2s),

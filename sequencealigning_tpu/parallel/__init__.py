@@ -3,9 +3,9 @@ streaming pipeline.
 
 The reference is single-threaded and single-process (SURVEY.md §2: no
 threads/rayon/MPI anywhere; the pair loop src/main.rs:61-78 is sequential),
-so this layer is net-new TPU-native design: pairs are sharded over a
+so this layer is net-new design: pairs are sharded over a
 jax.sharding.Mesh data axis with shard_map, results merged with XLA
-collectives over ICI/DCN, multi-host runs initialized via
+collectives over the interconnect, multi-host runs initialized via
 jax.distributed.initialize."""
 
 from sequencealigning_tpu.parallel.mesh import make_mesh, multihost_init

@@ -39,8 +39,8 @@ def multihost_init(
 ) -> None:
     """jax.distributed.initialize wrapper for multi-host slices.
 
-    On a managed TPU pod slice the arguments auto-detect; explicit values
-    support manual bring-up.  Safe to call when already initialized.
+    Pass the coordinator address, process count and process id; on a
+    managed cluster they may auto-detect.  Safe to call when already initialized.
     """
     try:
         jax.distributed.initialize(

@@ -171,11 +171,9 @@ def test_gotoh_aligner_mode_dispatch():
 
 
 def test_modes_pallas_matches_lax():
-    """The Pallas modes kernel (interpret off-TPU) must reproduce the lax
-    fill exactly: running argmax bookkeeping and every dirs word."""
+    """The plain modes fill at the removed kernel test's shapes: every end
+    cell's score equals the brute force, in both modes."""
     import random
-
-    import numpy as np
 
     from sequencealigning_tpu.io.encode import pack_batch
     from sequencealigning_tpu.ops.nw_affine_modes import nw_affine_modes_batch
@@ -195,27 +193,13 @@ def test_modes_pallas_matches_lax():
     for local in (False, True):
         rl = nw_affine_modes_batch(
             batch.query, batch.db, batch.query_len, batch.db_len,
-            local=local, backend="lax",
+            local=local,
         )
-        rp = nw_affine_modes_batch(
-            batch.query, batch.db, batch.query_len, batch.db_len,
-            local=local, backend="pallas",
-        )
-        assert np.array_equal(rl.best, rp.best)
-        assert np.array_equal(rl.best_x, rp.best_x)
-        assert np.array_equal(rl.best_y, rp.best_y)
-
-        # The pallas sweep pads diagonals to the chunk boundary; compare
-        # per-byte up to the real diagonal count.
-        def diag_bytes(d, n):
-            w = d[:, None] >> np.array([0, 8, 16, 24], np.uint32)[None, :, None, None]
-            return (w & 0xFF).reshape(-1, *d.shape[1:])[:n]
-
         d_total = batch.query.shape[1] + batch.db.shape[1] + 1
-        assert np.array_equal(
-            diag_bytes(np.asarray(rl.dirs), d_total),
-            diag_bytes(np.asarray(rp.dirs), d_total),
-        )
+        assert np.asarray(rl.dirs).shape[0] == -(-d_total // 4)
+        mode = "local" if local else "semi"
+        for b, (s1, s2) in enumerate(pairs):
+            assert int(rl.best[b]) == brute_force_mode(s1, s2, mode), b
 
 
 def test_modes_chunked_drain_equals_unchunked(monkeypatch):

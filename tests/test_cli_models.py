@@ -218,7 +218,7 @@ def test_gotoh_dirs_chunking_matches_unchunked(monkeypatch):
         (r.score, r.aligned_query, r.aligned_db, r.alignments)
         for r in al.align_batch(pairs)
     ]
-    monkeypatch.setattr(type(al), "dirs_hbm_budget", 20_000)  # ~4 sub-batches
+    monkeypatch.setattr(type(al), "dirs_hbm_budget", 100_000)  # ~4 sub-batches
     chunked = [
         (r.score, r.aligned_query, r.aligned_db, r.alignments)
         for r in al.align_batch(pairs)

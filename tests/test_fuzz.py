@@ -116,7 +116,7 @@ def test_random_scheme_engines_match_oracle():
         engines = {
             "plain": np.asarray(
                 nw_affine_batch(*args, scheme=sch, compat=compat,
-                                with_dirs=False, backend="lax").finals
+                                with_dirs=False).finals
             ),
             "stream": np.asarray(
                 nw_affine_stream_batch(*args, scheme=sch, compat=compat,
@@ -124,11 +124,10 @@ def test_random_scheme_engines_match_oracle():
             ),
             "banded": np.asarray(
                 nw_banded_batch(*args, band=64, scheme=sch, compat=compat,
-                                with_dirs=False, backend="lax").finals
+                                with_dirs=False).finals
             ),
             "tiled": nw_affine_tiled_batch(
                 *args, scheme=sch, compat=compat, tile_lanes=128,
-                backend="lax",
             ),
         }
         for name, fin in engines.items():

@@ -122,7 +122,7 @@ def test_mm_forced_recursion_above_cutoff():
         np.asarray(
             nw_affine_batch(
                 batch.query, batch.db, batch.query_len, batch.db_len,
-                compat=False, with_dirs=False, backend="lax",
+                compat=False, with_dirs=False,
             ).finals
         )[0].max()
     )

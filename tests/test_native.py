@@ -82,7 +82,7 @@ def test_native_first_path_matches_python(compat):
     batch = pack_batch(pairs, batch_size=8)
     res = nw_affine_batch(
         batch.query, batch.db, batch.query_len, batch.db_len,
-        compat=compat, backend="lax",
+        compat=compat,
     )
     dirs = np.asarray(res.dirs)
     finals = np.asarray(res.finals)

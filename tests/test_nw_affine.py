@@ -1,4 +1,4 @@
-"""Affine-NW kernel tests: lax path vs oracle, Pallas vs lax, traceback."""
+"""Plain affine-NW fill tests: lax path vs oracle, traceback."""
 
 import random
 
@@ -23,11 +23,11 @@ def _random_pairs(seed, n_pairs=8, lo=2, hi=30, alphabet=b"ACGT"):
     ]
 
 
-def _finals_vs_oracle(pairs, compat, backend):
+def _finals_vs_oracle(pairs, compat):
     batch = pack_batch(pairs, batch_size=8)
     res = nw_affine_batch(
         batch.query, batch.db, batch.query_len, batch.db_len,
-        compat=compat, backend=backend,
+        compat=compat,
     )
     finals = np.asarray(res.finals)
     for b, (s1, s2) in enumerate(pairs):
@@ -40,26 +40,23 @@ def _finals_vs_oracle(pairs, compat, backend):
 
 @pytest.mark.parametrize("compat", [True, False])
 def test_lax_finals_match_oracle(compat):
-    _finals_vs_oracle(_random_pairs(7, alphabet=b"ACGTN"), compat, "lax")
+    _finals_vs_oracle(_random_pairs(7, alphabet=b"ACGTN"), compat)
 
 
 @pytest.mark.parametrize("compat", [True, False])
 def test_pallas_interpret_matches_lax(compat):
+    """The plain fill (the only engine of runner kernel='plain') at the
+    removed kernel test's shapes: finals and dirs-word count."""
     pairs = _random_pairs(11, n_pairs=8, hi=25)
-    batch = pack_batch(pairs, batch_size=8)
-    args = (batch.query, batch.db, batch.query_len, batch.db_len)
-    r_lax = nw_affine_batch(*args, compat=compat, backend="lax")
-    r_pal = nw_affine_batch(*args, compat=compat, backend="pallas", chunk=8)
-    np.testing.assert_array_equal(np.asarray(r_lax.finals), np.asarray(r_pal.finals))
-    dl, dp = np.asarray(r_lax.dirs), np.asarray(r_pal.dirs)
-    n = min(dl.shape[0], dp.shape[0])  # pallas pads diagonals to chunk size
-    np.testing.assert_array_equal(dl[: n - 1], dp[: n - 1])
+    res, batch = _finals_vs_oracle(pairs, compat)
+    d_total = batch.query.shape[1] + batch.db.shape[1] + 1
+    assert np.asarray(res.dirs).shape[0] == -(-d_total // 4)
 
 
 @pytest.mark.parametrize("compat", [True, False])
 def test_traceback_matches_oracle_walker(compat):
     pairs = _random_pairs(13 if compat else 17)
-    res, batch = _finals_vs_oracle(pairs, compat, "lax")
+    res, batch = _finals_vs_oracle(pairs, compat)
     tb = traceback_batch(
         res.dirs, res.finals,
         [p[0] for p in pairs], [p[1] for p in pairs], compat=compat,
@@ -78,7 +75,7 @@ def test_score_only_mode():
     batch = pack_batch(pairs, batch_size=8)
     r = nw_affine_batch(
         batch.query, batch.db, batch.query_len, batch.db_len,
-        with_dirs=False, backend="lax",
+        with_dirs=False,
     )
     assert r.dirs is None
     for b, (s1, s2) in enumerate(pairs):
@@ -90,7 +87,7 @@ def test_wildcard_scoring():
     batch = pack_batch([(b"NNNN", b"ACGT")], batch_size=8)
     r = nw_affine_batch(
         batch.query, batch.db, batch.query_len, batch.db_len,
-        wildcard=True, backend="lax",
+        wildcard=True,
     )
     assert int(np.asarray(r.finals)[0].max()) == 20
 
@@ -98,4 +95,4 @@ def test_wildcard_scoring():
 def test_variable_lengths_in_one_batch():
     """Finals must be read at each pair's own corner despite shared padding."""
     pairs = [(b"A", b"A"), (b"ACGTACGT", b"ACGTACGT"), (b"AC", b"ACGTACGTACGT")]
-    _finals_vs_oracle(pairs, True, "lax")
+    _finals_vs_oracle(pairs, True)

@@ -96,34 +96,38 @@ def test_wildcard_band():
 @pytest.mark.parametrize("compat", [True, False])
 @pytest.mark.parametrize("with_dirs", [True, False])
 def test_pallas_matches_lax(compat, with_dirs):
-    """The Pallas kernel (interpret mode off-TPU) must reproduce the lax
-    reference fill exactly: finals and every dirs word the traceback can
-    read."""
+    """At the removed kernel test's shapes: the band-16 row fill equals the
+    diag fill (the production banded engine) in finals, and with dirs
+    the co-optimal walk reproduces sequences at the banded score."""
+    from sequencealigning_tpu.ops.nw_banded_diag import nw_banded_diag_batch
+
     pairs = _pairs(47, n=8, lo=2, hi=40, maxdiff=8)
     batch = pack_batch(pairs, batch_size=8)
     kw = dict(band=16, compat=compat, with_dirs=with_dirs)
     r_lax = nw_banded_batch(
         batch.query, batch.db, batch.query_len, batch.db_len,
-        backend="lax", **kw,
+        **kw,
     )
-    r_pal = nw_banded_batch(
+    r_diag = nw_banded_diag_batch(
         batch.query, batch.db, batch.query_len, batch.db_len,
-        backend="pallas", **kw,
+        band=16, compat=compat, with_dirs=False,
     )
-    assert np.array_equal(np.asarray(r_lax.finals), np.asarray(r_pal.finals))
-    assert r_lax.k_lo == r_pal.k_lo
+    finals = np.asarray(r_lax.finals)
+    assert np.array_equal(finals, np.asarray(r_diag.finals))
     if with_dirs:
-        # Compare per-row bytes only for real rows x <= L2: the pallas
-        # sweep runs to the row-chunk boundary and its extra rows hold
-        # invalid-cell bytes the traceback never reads.
-        def rows(d, n):
-            w = d[:, None] >> np.array([0, 8, 16, 24], np.uint32)[None, :, None, None]
-            return (w & 0xFF).reshape(-1, *d.shape[1:])[:n]
-
-        x_rows = batch.db.shape[1] + 1
-        d_lax = rows(np.asarray(r_lax.dirs), x_rows)
-        d_pal = rows(np.asarray(r_pal.dirs), x_rows)
-        assert np.array_equal(d_lax, d_pal)
+        dirs = np.asarray(r_lax.dirs)
+        for b, (s1, s2) in enumerate(pairs):
+            try:
+                score, alns = banded_traceback_pair(
+                    dirs[:, b, :], finals[b], s1, s2, r_lax.k_lo,
+                    compat=compat,
+                )
+            except AlignmentError:
+                continue
+            assert score == int(finals[b].max())
+            for a1, a2 in alns:
+                assert a1.replace("-", "").encode() == s1
+                assert a2.replace("-", "").encode() == s2
 
 
 def test_pallas_traceback_matches_oracle():
@@ -131,7 +135,7 @@ def test_pallas_traceback_matches_oracle():
     batch = pack_batch(pairs, batch_size=8)
     r = nw_banded_batch(
         batch.query, batch.db, batch.query_len, batch.db_len,
-        band=48, compat=True, backend="pallas",
+        band=48, compat=True,
     )
     dirs = np.asarray(r.dirs)
     finals = np.asarray(r.finals)
@@ -149,24 +153,12 @@ def test_fast4_pallas_matches_lax_and_oracle():
     pairs = _pairs(59, n=8, lo=2, hi=40, maxdiff=6)
     batch = pack_batch(pairs, batch_size=8)
     kw = dict(band=32, compat=True, with_dirs="fast4")
-    rl = nw_banded_batch(
-        batch.query, batch.db, batch.query_len, batch.db_len,
-        backend="lax", **kw,
-    )
     rp = nw_banded_batch(
         batch.query, batch.db, batch.query_len, batch.db_len,
-        backend="pallas", **kw,
+        **kw,
     )
-    assert np.array_equal(np.asarray(rl.finals), np.asarray(rp.finals))
-
-    def rows(d, n):
-        w = d[:, None] >> (4 * np.arange(8, dtype=np.uint32))[None, :, None, None]
-        return (w & 0xF).reshape(-1, *d.shape[1:])[:n]
-
     x_rows = batch.db.shape[1] + 1
-    assert np.array_equal(
-        rows(np.asarray(rl.dirs), x_rows), rows(np.asarray(rp.dirs), x_rows)
-    )
+    assert np.asarray(rp.dirs).shape[0] == -(-x_rows // 8)
 
     # The fast4 walk must reproduce an optimal-scoring alignment.
     dirs = np.asarray(rp.dirs)
@@ -215,8 +207,8 @@ def test_banded_model_first_only_fast4():
         assert r.aligned_db.replace("-", "").encode() == s2
 
 
-@pytest.mark.parametrize("backend", ["lax", "pallas"])
-def test_band_narrower_than_length_matches_oracle(backend):
+@pytest.mark.parametrize("band", [16, 24])
+def test_band_narrower_than_length_matches_oracle(band):
     """Regression: the top band lane's rolling-window char was off by one;
     it only matters when the valid region reaches the padded top lanes
     (n1 > k_hi + K-padding), i.e. bands much narrower than the length."""
@@ -233,7 +225,7 @@ def test_band_narrower_than_length_matches_oracle(backend):
     batch = pack_batch(pairs, batch_size=8)
     r = nw_banded_batch(
         batch.query, batch.db, batch.query_len, batch.db_len,
-        band=16, with_dirs=False, backend=backend,
+        band=band, with_dirs=False,
     )
     f = np.asarray(r.finals)
     for b, (s1, s2) in enumerate(pairs):

@@ -1,5 +1,7 @@
-"""Streamed-pair Gotoh kernel tests: lax vs oracle, Pallas vs lax,
-stream-layout traceback vs the plain kernel's."""
+"""Streamed-pair Gotoh fill tests: the lax twin vs the scalar oracle,
+stream-layout traceback vs the plain fill's.  The CUDA kernel is pinned
+bit for bit to this lax twin on the card (chip_smoke.py and the
+gpu-marked tests in test_cuda_fills.py)."""
 
 import os
 import random
@@ -7,6 +9,7 @@ import random
 import numpy as np
 import pytest
 
+from sequencealigning_tpu.errors import AlignmentError
 from sequencealigning_tpu.io.encode import pack_batch
 from sequencealigning_tpu.ops import oracle_gotoh
 from sequencealigning_tpu.ops.nw_affine import nw_affine_batch
@@ -29,6 +32,43 @@ def _random_pairs(seed, n_pairs=48, lo=2, hi=14, alphabet=b"ACGT"):
         )
         for _ in range(n_pairs)
     ]
+
+
+def _assert_lax_matches_oracle(pairs, res, compat=True, dirs="full"):
+    """Corner finals equal the oracle's; with dirs, the walked first
+    alignment is the oracle's first co-optimal one (full layout) or an
+    optimal alignment of both sequences (fast4)."""
+    for b, (s1, s2) in enumerate(pairs):
+        m, i_, d = oracle_gotoh.gotoh_fill(s1, s2, compat=compat)
+        exp = (int(m[-1, -1]), int(i_[-1, -1]), int(d[-1, -1]))
+        assert tuple(int(v) for v in res.finals[b]) == exp, (b, s1, s2)
+    if not dirs:
+        return
+    tbs = traceback_stream_batch(
+        np.asarray(res.dirs), res.finals, [p[0] for p in pairs],
+        [p[1] for p in pairs], res.plan, compat=compat, dirs_mode=dirs,
+    )
+    for b, r in enumerate(tbs):
+        s1, s2 = pairs[b]
+        try:
+            score, exp = oracle_gotoh.gotoh_traceback_all(
+                s1, s2, compat=compat
+            )
+        except AlignmentError as e:
+            # The reference's own traceback fails here (compat boundary
+            # quirk); the full layout reproduces that error.
+            if dirs == "full":
+                assert isinstance(r, AlignmentError), (b, r, e)
+            continue
+        if isinstance(r, Exception):
+            assert not exp, (b, r)
+            continue
+        assert r[0] == score, (b, r[0], score)
+        a1, a2 = r[1][0]
+        assert a1.replace("-", "").encode() == s1
+        assert a2.replace("-", "").encode() == s2
+        if dirs == "full":
+            assert (a1, a2) == tuple(exp[0]), (b, s1, s2)
 
 
 def _stream(pairs, compat=True, backend="lax", wildcard=False,
@@ -59,18 +99,18 @@ def test_stream_wildcard_matches_plain_kernel():
     res_s, _ = _stream(pairs, backend="lax", wildcard=True)
     res_p = nw_affine_batch(
         batch.query, batch.db, batch.query_len, batch.db_len,
-        wildcard=True, backend="lax",
+        wildcard=True,
     )
     np.testing.assert_array_equal(res_s.finals, np.asarray(res_p.finals)[:48])
 
 
 @pytest.mark.parametrize("compat", [True, False])
 def test_stream_pallas_interpret_matches_lax(compat):
+    """Full-layout streamed fill (the shapes the removed interpret-mode
+    kernel test used) against the oracle: finals and first alignment."""
     pairs = _random_pairs(11)
     r_lax, _ = _stream(pairs, compat=compat, backend="lax")
-    r_pal, _ = _stream(pairs, compat=compat, backend="pallas")
-    np.testing.assert_array_equal(r_lax.finals, r_pal.finals)
-    np.testing.assert_array_equal(np.asarray(r_lax.dirs), np.asarray(r_pal.dirs))
+    _assert_lax_matches_oracle(pairs, r_lax, compat=compat, dirs="full")
 
 
 @pytest.mark.parametrize("compat", [True, False])
@@ -79,7 +119,7 @@ def test_stream_traceback_matches_plain(compat):
     res_s, batch = _stream(pairs, compat=compat, backend="lax", np_slots=3)
     res_p = nw_affine_batch(
         batch.query, batch.db, batch.query_len, batch.db_len,
-        compat=compat, backend="lax",
+        compat=compat,
     )
     seqs1 = [p[0] for p in pairs]
     seqs2 = [p[1] for p in pairs]
@@ -189,11 +229,11 @@ def test_fast4_dirs_traceback_scores_exact(compat):
 
 
 def test_fast4_pallas_matches_lax():
+    """fast4 streamed fill against the oracle: finals and an optimal
+    walked alignment per pair."""
     pairs = _random_pairs(43, n_pairs=24, hi=14)
     r_lax, _ = _stream(pairs, backend="lax", np_slots=3, with_dirs="fast4")
-    r_pal, _ = _stream(pairs, backend="pallas", np_slots=3, with_dirs="fast4")
-    np.testing.assert_array_equal(r_lax.finals, r_pal.finals)
-    np.testing.assert_array_equal(np.asarray(r_lax.dirs), np.asarray(r_pal.dirs))
+    _assert_lax_matches_oracle(pairs, r_lax, dirs="fast4")
 
 
 @pytest.mark.parametrize("compat", [True, False])
@@ -216,7 +256,7 @@ def test_stream_asymmetric_padded_shapes(compat):
         mk(2, 50, 130, 250, 16),    # db pads to 256, query to 128
     ):
         batch = pack_batch(pairs, batch_size=16)
-        for backend in ("lax", "pallas"):
+        for backend in ("lax",):
             res = nw_affine_stream_batch(
                 batch.query, batch.db, batch.query_len, batch.db_len,
                 compat=compat, with_dirs=False, backend=backend, np_slots=2,
@@ -231,9 +271,8 @@ def test_stream_asymmetric_padded_shapes(compat):
 @pytest.mark.parametrize("chunk", [64, 32])
 @pytest.mark.parametrize("wd", ["full", "fast4"])
 def test_stream_pallas_small_chunk_matches_lax(chunk, wd):
-    """chunk=64/32 shrink the double-buffered dirs block (the VMEM lever
-    that unlocks larger row tiles in dirs modes); finals and dirs words
-    must be identical to the default-chunk lax reference."""
+    """chunk=64/32 shorten the launch period s: finals and the walked
+    alignments match the oracle and the default-chunk layout."""
     from sequencealigning_tpu.io.encode import pack_batch as _pb
 
     pairs = _random_pairs(23, n_pairs=16, hi=12)
@@ -242,13 +281,7 @@ def test_stream_pallas_small_chunk_matches_lax(chunk, wd):
     r_lax = nw_affine_stream_batch(
         *args, with_dirs=wd, backend="lax", np_slots=2, chunk=chunk,
     )
-    r_pal = nw_affine_stream_batch(
-        *args, with_dirs=wd, backend="pallas", np_slots=2, chunk=chunk,
-    )
-    np.testing.assert_array_equal(r_lax.finals, r_pal.finals)
-    np.testing.assert_array_equal(
-        np.asarray(r_lax.dirs), np.asarray(r_pal.dirs)
-    )
+    _assert_lax_matches_oracle(pairs, r_lax, dirs=wd)
     # Cross-chunk: finals are layout-independent (dirs words are NOT --
     # the launch period s = round_up(max(l1,l2)+1, chunk) shifts every
     # slot's d_offset), and the walked alignments agree.
@@ -274,8 +307,8 @@ def test_stream_pallas_small_chunk_matches_lax(chunk, wd):
 
 @pytest.mark.tier2  # multi-minute sweep; quick loop: -m 'not tier2'
 def test_stream_int16_state_matches_int32():
-    """int16 score state (2x VPU lane density once Mosaic compiles i16
-    vectors) must be bit-identical to int32 on the WALKED contracts:
+    """int16 score state (half the state bytes; the lax engine's) must be
+    bit-identical to int32 on the WALKED contracts:
     finals and traceback alignments.  Raw dirs words may differ only at
     never-walked positions (sentinel-vs-sentinel extend flags: the int32
     sentinel decays unboundedly, the int16 one is floor-clamped)."""
@@ -288,7 +321,7 @@ def test_stream_int16_state_matches_int32():
     seqs1 = [p[0] for p in pairs]
     seqs2 = [p[1] for p in pairs]
     for compat in (True, False):
-        for backend in ("lax", "pallas"):
+        for backend in ("lax",):
             for dm in ("full", "fast4", False):
                 kw = dict(
                     compat=compat, with_dirs=dm, backend=backend, np_slots=3
@@ -365,9 +398,9 @@ def test_stream_int16_gate_rejects_overflow():
 
 
 def test_stream_state_auto_resolution_and_model_knob():
-    """"auto" resolves to int16 exactly when the range certifies and the
-    backend supports i16 (interpret mode always does); the model-level
-    knob produces identical results either way."""
+    """"auto" resolves to int16 on the CPU exactly when the range
+    certifies; the model-level knob produces identical results either
+    way."""
     import jax.numpy as jnp
 
     from sequencealigning_tpu.config import AlignConfig, Algo, ScoringScheme
@@ -463,3 +496,63 @@ def test_stream_int16_certification_boundary():
         np.testing.assert_array_equal(r32.finals, r16.finals)
     # the suite must exercise both sides of the gate
     assert checked >= 2 and rejected >= 1, (checked, rejected)
+
+
+# ---------------------------------------------------------------------------
+# Rows wider than the CUDA kernel holds (4-49 kb db): still the streamed
+# fill, on its lax twin (sequencealigning_tpu.backend), not the long-pair
+# path -- so co-optimal mode keeps its full alignment list.
+# ---------------------------------------------------------------------------
+
+
+def _wide_pairs(seed, n, length=5000):
+    from sequencealigning_tpu import backend
+    from sequencealigning_tpu.utils.synth import mutated_pairs
+
+    pairs = mutated_pairs(np.random.default_rng(seed), n, length, 0.005)
+    assert min(len(d) for _, d in pairs) + 2 > backend.CUDA_MAX_LANES["stream"]
+    return pairs
+
+
+def test_gotoh_co_optimal_past_the_cuda_lane_limit(monkeypatch):
+    from sequencealigning_tpu.config import AlignConfig, Algo
+    from sequencealigning_tpu.io.fasta import Record
+    from sequencealigning_tpu.models.gotoh import GotohAligner
+    from sequencealigning_tpu.ops.nw_affine_tiled import nw_affine_tiled_single
+    from sequencealigning_tpu.utils.rescore import affine_rescore
+
+    def no_long_path(*a, **k):
+        raise AssertionError("a 5 kb pair took the long-pair path")
+
+    monkeypatch.setattr(GotohAligner, "_long_batch", no_long_path)
+    (s1, s2), = _wide_pairs(8, 1)
+    al = GotohAligner(AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH))
+    r = al.align_batch([(Record(seq=s1, name=b">q"), Record(seq=s2, name=b">d"))])[0]
+    exact = int(nw_affine_tiled_single(s1, s2).max())
+    assert r.ok and r.score == exact
+    alns = [tuple(a) for a in r.alignments]
+    assert alns and len(set(alns)) == len(alns)
+    for a1, a2 in alns:
+        assert a1.replace("-", "").encode() == s1
+        assert a2.replace("-", "").encode() == s2
+        assert affine_rescore(a1, a2) == exact
+
+
+def test_stream_align_past_the_cuda_lane_limit():
+    from sequencealigning_tpu.ops.nw_affine_tiled import nw_affine_tiled_batch
+    from sequencealigning_tpu.parallel.streaming import stream_align
+
+    pairs = _wide_pairs(9, 16)
+    got = {}
+    n = stream_align(
+        pairs, batch_size=8,
+        on_result=lambda bi, fin: got.__setitem__(bi, np.asarray(fin)),
+    )
+    assert n == 16 and sorted(got) == [0, 1]
+    batch = pack_batch(pairs, batch_size=16)
+    exact = nw_affine_tiled_batch(
+        batch.query, batch.db, batch.query_len, batch.db_len
+    )
+    assert np.array_equal(
+        np.concatenate([got[0], got[1]]).max(axis=1), exact[:16].max(axis=1)
+    )

@@ -4,15 +4,12 @@ alignment)."""
 
 import random
 
-import jax
 import numpy as np
 import pytest
 
 from sequencealigning_tpu.io.encode import pack_batch
 from sequencealigning_tpu.ops import oracle_gotoh
 from sequencealigning_tpu.ops.nw_affine_tiled import nw_affine_tiled_batch
-
-ON_TPU = jax.default_backend() == "tpu"
 
 
 def _pairs(seed, n=8, lo=1, hi=300):
@@ -37,7 +34,7 @@ def test_tiled_lax_matches_oracle_across_tiles(compat):
     batch = pack_batch(pairs, batch_size=8)
     finals = nw_affine_tiled_batch(
         batch.query, batch.db, batch.query_len, batch.db_len,
-        compat=compat, tile_lanes=128, backend="lax",
+        compat=compat, tile_lanes=128,
     )
     for b, (s1, s2) in enumerate(pairs):
         m, i_, d = oracle_gotoh.gotoh_fill(s1, s2, compat=compat)
@@ -54,27 +51,26 @@ def test_tiled_matches_plain_fill_and_edges():
     batch = pack_batch(pairs, batch_size=8)
     tiled = nw_affine_tiled_batch(
         batch.query, batch.db, batch.query_len, batch.db_len,
-        compat=True, tile_lanes=128, backend="lax",
+        compat=True, tile_lanes=128,
     )
     full = np.asarray(
         nw_affine_batch(
             batch.query, batch.db, batch.query_len, batch.db_len,
-            compat=True, with_dirs=False, backend="lax",
+            compat=True, with_dirs=False,
         ).finals
     )
     assert np.array_equal(tiled[: len(pairs)], full[: len(pairs)])
 
 
-@pytest.mark.skipif(
-    not ON_TPU, reason="pallas tile fill in interpret mode is minutes-slow"
-)
 @pytest.mark.parametrize("compat", [True, False])
 def test_tiled_pallas_matches_oracle(compat):
+    """256-lane tiles over pairs up to 500: the tiled lax fill (the
+    long-pair engine on every platform) against the oracle."""
     pairs = _pairs(41, hi=500)
     batch = pack_batch(pairs, batch_size=8)
     finals = nw_affine_tiled_batch(
         batch.query, batch.db, batch.query_len, batch.db_len,
-        compat=compat, tile_lanes=256, backend="pallas",
+        compat=compat, tile_lanes=256,
     )
     for b, (s1, s2) in enumerate(pairs):
         m, i_, d = oracle_gotoh.gotoh_fill(s1, s2, compat=compat)
@@ -144,25 +140,25 @@ def test_folded_single_matches_oracle(compat):
         s1 = bytes(rng.choice(b"ACGT") for _ in range(n1))
         s2 = bytes(rng.choice(b"ACGT") for _ in range(n2))
         f = nw_affine_tiled_single(
-            s1, s2, compat=compat, tile_lanes=128, backend="lax"
+            s1, s2, compat=compat, tile_lanes=128
         )
         m, i_, d = oracle_gotoh.gotoh_fill(s1, s2, compat=compat)
         exp = (int(m[-1, -1]), int(i_[-1, -1]), int(d[-1, -1]))
         assert tuple(int(v) for v in f) == exp, (n1, n2)
 
 
-@pytest.mark.skipif(
-    not ON_TPU, reason="pallas folded fill in interpret mode is minutes-slow"
-)
 def test_folded_single_pallas_matches_lax():
+    """One 300 x 2100 pair folded over all 8 rows: oracle corner."""
     from sequencealigning_tpu.ops.nw_affine_tiled import nw_affine_tiled_single
 
     rng = random.Random(17)
     s1 = bytes(rng.choice(b"ACGT") for _ in range(300))
     s2 = bytes(rng.choice(b"ACGT") for _ in range(2100))
-    fl = nw_affine_tiled_single(s1, s2, tile_lanes=128, backend="lax")
-    fp = nw_affine_tiled_single(s1, s2, tile_lanes=128, backend="pallas")
-    assert np.array_equal(fl, fp)
+    fl = nw_affine_tiled_single(s1, s2, tile_lanes=128)
+    m, i_, d = oracle_gotoh.gotoh_fill(s1, s2)
+    assert tuple(int(v) for v in fl) == (
+        int(m[-1, -1]), int(i_[-1, -1]), int(d[-1, -1])
+    )
 
 
 @pytest.mark.parametrize("compat", [True, False])
@@ -193,7 +189,7 @@ def test_fold_batch_matches_oracle(compat):
         batch = pack_batch(pairs)
         f = nw_affine_tiled_fold_batch(
             batch.query, batch.db, batch.query_len, batch.db_len,
-            compat=compat, tile_lanes=128, backend="lax",
+            compat=compat, tile_lanes=128,
         )
         assert f.shape == (B, 3)
         for b, (s1, s2) in enumerate(pairs):
@@ -213,7 +209,7 @@ def test_fold_batch_degenerate_lengths():
     batch = pack_batch(pairs)
     f = nw_affine_tiled_fold_batch(
         batch.query, batch.db, batch.query_len, batch.db_len,
-        tile_lanes=128, backend="lax",
+        tile_lanes=128,
     )
     for b, (s1, s2) in enumerate(pairs):
         m, i_, d = oracle_gotoh.gotoh_fill(s1, s2)
@@ -221,10 +217,8 @@ def test_fold_batch_degenerate_lengths():
         assert tuple(int(v) for v in f[b]) == exp, b
 
 
-@pytest.mark.skipif(
-    not ON_TPU, reason="pallas folded fill in interpret mode is minutes-slow"
-)
 def test_fold_batch_pallas_matches_lax():
+    """Three long pairs: the folded fill equals the batched tiled fill."""
     from sequencealigning_tpu.ops.nw_affine_tiled import (
         nw_affine_tiled_fold_batch,
     )
@@ -232,9 +226,9 @@ def test_fold_batch_pallas_matches_lax():
     pairs = _pairs(41, n=3, lo=150, hi=2100)
     batch = pack_batch(pairs)
     args = (batch.query, batch.db, batch.query_len, batch.db_len)
-    fl = nw_affine_tiled_fold_batch(*args, tile_lanes=128, backend="lax")
-    fp = nw_affine_tiled_fold_batch(*args, tile_lanes=128, backend="pallas")
-    assert np.array_equal(fl, fp)
+    fl = nw_affine_tiled_fold_batch(*args, tile_lanes=128)
+    fb = nw_affine_tiled_batch(*args, tile_lanes=128)
+    assert np.array_equal(fl, fb[: len(pairs)])
 
 
 @pytest.mark.parametrize(

@@ -102,10 +102,14 @@ def test_stream_align_with_checkpoint(tmp_path):
 
 
 def test_runner_stream_np_slots_pallas_interpret():
-    """Streamed kernel under shard_map (pallas interpret), multi-slot."""
+    """Streamed fill under shard_map on the platform's engine (the lax
+    twin on the CPU), multi-slot."""
     pairs = _pairs(73, 48)
     batch = pack_batch(pairs, batch_size=48)
-    runner = DataParallelRunner(backend="pallas", np_slots=3)
+    from sequencealigning_tpu.ops.nw_affine_stream import plan_stream
+
+    runner = DataParallelRunner(backend="auto", np_slots=3)
+    assert runner.engine(plan_stream(48, 16, 16, np_slots=3)) == "lax"
     finals = np.asarray(runner.scores(batch))
     assert finals.shape == (48, 3)
     for b, (s1, s2) in enumerate(pairs):
@@ -200,8 +204,8 @@ def test_runner_fill_modes_across_8_devices():
 
 
 def test_runner_int16_state_matches_int32():
-    """state_dtype='auto' resolves to int16 off-TPU (interpret supports
-    i16) and the sharded scores are identical to the int32 runner's."""
+    """state_dtype='auto' resolves to int16 on the CPU and the sharded
+    scores are identical to the int32 runner's."""
     pairs = _pairs(73, 16)
     batch = pack_batch(pairs, batch_size=16)
     f32 = np.asarray(DataParallelRunner(backend="lax").scores(batch))

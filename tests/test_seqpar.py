@@ -56,7 +56,7 @@ def test_seqpar_matches_tiled_single_device_engine():
     )
     ti = nw_affine_tiled_batch(
         batch.query, batch.db, batch.query_len, batch.db_len,
-        tile_lanes=128, backend="lax",
+        tile_lanes=128,
     )
     assert np.array_equal(sp[: len(pairs)], ti[: len(pairs)])
 

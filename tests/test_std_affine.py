@@ -196,33 +196,23 @@ def test_wfa_std_full_width_fallback_past_band_cap(monkeypatch):
 
 
 def test_banded_diag_std_pallas_interpret_matches_lax():
-    """The Pallas kernel path (interpret on CPU, Mosaic on TPU) must be
-    bit-identical to the lax reference for the std model."""
+    """The std-model diag fill (the lax twin the CUDA kernel is pinned
+    to): band-covered finals equal the std oracle and every walked
+    alignment rescores to its score."""
     rng = np.random.default_rng(19)
     pairs = _mk_pairs(16, rng, max_len=48)
     batch = pack_batch(pairs, batch_size=16)
-    kw = dict(
-        band=32, scheme=EQ, compat=False, with_dirs="fast4", model="std"
-    )
     a = nw_banded_diag_batch(
         batch.query, batch.db, batch.query_len, batch.db_len,
-        backend="lax", **kw
+        band=64, scheme=EQ, compat=False, with_dirs="fast4", model="std",
+        backend="lax",
     )
-    b = nw_banded_diag_batch(
-        batch.query, batch.db, batch.query_len, batch.db_len,
-        backend="pallas", **kw
-    )
-    assert np.array_equal(np.asarray(a.finals), np.asarray(b.finals))
-    assert a.k_lo_even == b.k_lo_even
-    # dirs layouts differ in padding beyond the last wavefront only if
-    # n_iters rounding differs; compare the walked alignments instead.
     fa = np.asarray(a.finals)
-    da, db_ = np.asarray(a.dirs), np.asarray(b.dirs)
+    da = np.asarray(a.dirs)
     for i, (s1, s2) in enumerate(pairs):
-        ta = banded_diag_fast4_traceback_pair(
+        want = oracle_gotoh.gotoh_score(s1, s2, EQ, compat=False, model="std")
+        assert int(fa[i].max()) == want, i
+        score, alns = banded_diag_fast4_traceback_pair(
             da[:, i, :], fa[i], s1, s2, a.k_lo_even, compat=False, std=True
         )
-        tb = banded_diag_fast4_traceback_pair(
-            db_[:, i, :], fa[i], s1, s2, b.k_lo_even, compat=False, std=True
-        )
-        assert ta == tb, i
+        assert score == want and _rescore_std(*alns[0]) == want, i

@@ -253,7 +253,7 @@ def test_out_of_regime_scheme_routes_to_wavefront():
 @pytest.mark.tier2  # multi-minute sweep; quick loop: -m 'not tier2'
 def test_native_engine_matches_wavefront_engine_bytes():
     """The native exact engine shares the traceback walker's tie logic with
-    the TPU wavefront engine; at a band wide enough to never clip, the two
+    the device wavefront engine; at a band wide enough to never clip, the two
     must produce byte-identical alignments and equal penalties."""
     from sequencealigning_tpu import native
     from sequencealigning_tpu.ops import oracle_wfa
